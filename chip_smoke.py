@@ -138,7 +138,7 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
     return (fwd, bt, fwd_p, bt_p), log_B, log_pi
 
 
-def phase_equality(dev, N=16, T=1024) -> dict:
+def phase_equality(dev) -> dict:
     """Kernels against plain versions and the oracle; returns the largest
     absolute difference per kernel id."""
     rng = np.random.default_rng(1)
@@ -149,6 +149,7 @@ def phase_equality(dev, N=16, T=1024) -> dict:
         ("dense", 361, dense_matrix(361, 2)),
     ]
     errs = {k: 0.0 for k in KERNEL_INFO}
+    N, T = 16, 1024
     for kind, S, (A, pi) in cases:
         lengths = rng.integers(T // 4, T + 1, N).astype(np.int32)
         lengths[0], lengths[1] = T, 1
@@ -260,7 +261,7 @@ def phase_main_path(dev) -> dict:
     return launches
 
 
-def bounds(kind, kernel, S, lengths, bs=None):
+def bounds(kernel, S, lengths, bs=None):
     """(bound_ms, bound_by) from the bytes each input and output needs once
     and the FP32 operations this run's lengths need."""
     frames = int(np.sum(lengths))
@@ -296,8 +297,9 @@ def full_width_shapes():
     ]
 
 
-def phase_timing(dev, shapes, T_PLAIN=32) -> dict:
+def phase_timing(dev, shapes) -> dict:
     """Per shape: kernel ms, plain ms (short T, scaled per frame), bound."""
+    T_PLAIN = 32
     results = {}
     for kind, label, N, T, (A, pi) in shapes:
         S = A.shape[0]
@@ -335,8 +337,8 @@ def phase_timing(dev, shapes, T_PLAIN=32) -> dict:
         ms_bp = cuda_ms(lambda: bt_p(rows_s, last_s, lens_s), 1) * T / T_PLAIN
 
         bs = VB.extract_banded_structure(A) if kind == "banded" else None
-        bf = bounds(kind, kf, S, lengths, bs)
-        bb = bounds(kind, kb, S, lengths, bs)
+        bf = bounds(kf, S, lengths, bs)
+        bb = bounds(kb, S, lengths, bs)
         rec = {"phase": "timing", "shape": label, "N": N, "T": T, "S": S,
                "decode_ms": ms_decode, "frames_per_s": N * T / (ms_decode / 1e3),
                f"{kf}_ms": ms_f, f"{kb}_ms": ms_b,

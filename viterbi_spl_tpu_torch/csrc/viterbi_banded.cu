@@ -31,23 +31,39 @@
 // prefetches the next frame's observation into a register before the
 // barrier. The profiles live in shared memory when they fit (tonet: 29
 // classes at most, 42 KB) and are read through L1 otherwise (jdc's 81-offset
-// band is 234 KB, above the 227 KB a block may hold).
+// band is 234 KB, above the 227 KB a block may hold). When the band has at
+// most VSPL_BAND_REGS offsets (tonet: 29), each thread copies its own band
+// column from the profiles into registers once, so a candidate costs one
+// shared-memory load instead of three; the carry rows are padded so the
+// fully unrolled loop needs no bounds test. (Unrolling the three-load loop
+// with a masked trip count made K1 1.8x slower on the H100; PERF.md, PR 1.)
 //
 // K2 is a pointer chase: T dependent argmax steps per track, each over one
-// t1m1 row (S floats) plus a rebuilt logB row. One warp per track; the next
-// row is loaded into registers before the current step's reduction and rows
-// VSPL_L2_AHEAD frames ahead are prefetched into L2, so the chain waits on
-// the shuffle reduction rather than on device memory.
+// t1m1 row (S floats) plus a rebuilt logB row. One warp per track; t1m1 rows
+// stream through a VSPL_RING-row shared-memory ring filled by cp.async, so
+// each row is requested VSPL_RING steps before it is used and the chain
+// waits on the shuffle argmax rather than on device memory.
 
 #include "viterbi_common.cuh"
 
 // Shared memory a K1 block may use before the profiles move to L1.
 #define VSPL_BANDED_SMEM_BUDGET (200 * 1024)
+// In-band offsets a K1 thread can keep in registers.
+#define VSPL_BAND_REGS 32
+
+// Floats of one padded K1 carry row.
+__host__ __device__ inline int vspl_carry_stride(int S, int d_max) {
+  return S + d_max + VSPL_BAND_REGS;
+}
 
 extern "C" const char* vspl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// kRegBand (2 d_max + 1 <= VSPL_BAND_REGS): each thread keeps its own band
+// column in registers and reads one carry value per candidate; otherwise
+// it reads the class index, the profile and the carry value per candidate.
+template <bool kRegBand>
 __global__ void __launch_bounds__(1024) banded_forward_kernel(
     const float* __restrict__ log_obs,   // [N, T, S]
     const float* __restrict__ bv,        // [n_classes, S] source profiles
@@ -61,8 +77,11 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
   extern __shared__ float smem[];
   const int W = 2 * d_max + 1;
   const int n = S - 1;  // the unvoiced state
-  float* buf = smem;                               // [2][S] carry rows
-  float* wmax = buf + 2 * S;                       // [2][32] warp voiced maxima
+  // two carry rows, each with d_max zero slots before it and
+  // VSPL_BAND_REGS after it, so every unrolled in-band read stays in its row
+  const int stride = vspl_carry_stride(S, d_max);
+  float* buf = smem;                                  // [2][stride]
+  float* wmax = buf + 2 * stride;                     // [2][32] warp voiced maxima
   int* cls_s = reinterpret_cast<int*>(wmax + 2 * VSPL_MAX_WARPS);  // [W]
   float* bv_s = reinterpret_cast<float*>(cls_s + W);               // [C][S]
   const float* prof = bv_in_smem ? bv_s : bv;
@@ -72,9 +91,23 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int track = blockIdx.x;
+  for (int i = tid; i < 2 * stride; i += blockDim.x) buf[i] = 0.0f;
   for (int i = tid; i < W; i += blockDim.x) cls_s[i] = cls[i];
   if (bv_in_smem)
     for (int i = tid; i < n_classes * S; i += blockDim.x) bv_s[i] = bv[i];
+  __syncthreads();
+
+  // band[d][s] = logB[s, s + d] for the voiced sources of this target,
+  // -inf elsewhere (such a candidate never wins: the seed is finite)
+  float band[kRegBand ? VSPL_BAND_REGS : 1];
+  if constexpr (kRegBand) {
+#pragma unroll
+    for (int i = 0; i < VSPL_BAND_REGS; ++i) {
+      const int x = tid + i - d_max;
+      band[i] = (i < W && tid < n && x >= 0 && x < n) ? prof[cls_s[i] * S + x]
+                                                      : -CUDART_INF_F;
+    }
+  }
 
   const int len = lengths[track];
   const size_t base = static_cast<size_t>(track) * T * S;
@@ -85,7 +118,7 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
   float cur = -CUDART_INF_F;
   if (real) {
     cur = log_pi[tid] + obs[tid];
-    buf[tid] = cur;
+    buf[d_max + tid] = cur;
     out[tid] = 0.0f;
   }
   float wv = vspl_warp_max(tid < n ? cur : -CUDART_INF_F);
@@ -100,7 +133,7 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
     const float obs_t = obs_next;
     if (real && t + 1 < len) obs_next = obs[static_cast<size_t>(t + 1) * S + tid];
     __syncthreads();
-    const float* prev = buf + p * S;
+    const float* prev = buf + p * stride + d_max;
     const float* wm = wmax + p * VSPL_MAX_WARPS;
     float max_voiced = wm[0];
     for (int w = 1; w < nwarps; ++w) max_voiced = fmaxf(max_voiced, wm[w]);
@@ -108,9 +141,15 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
     float nv = -CUDART_INF_F;
     if (tid < n) {
       float acc = fmaxf(max_voiced + log_tiny, prev_uv + log_c_uv);
-      for (int d = d_lo; d <= d_hi; ++d) {
-        const int x = tid + d;
-        acc = fmaxf(acc, prev[x] + prof[cls_s[d + d_max] * S + x]);
+      if constexpr (kRegBand) {
+        const float* pv = prev + tid - d_max;  // pv[i] = T1[s + i - d_max]
+#pragma unroll
+        for (int i = 0; i < VSPL_BAND_REGS; ++i) acc = fmaxf(acc, pv[i] + band[i]);
+      } else {
+        for (int d = d_lo; d <= d_hi; ++d) {
+          const int x = tid + d;
+          acc = fmaxf(acc, prev[x] + prof[cls_s[d + d_max] * S + x]);
+        }
       }
       nv = acc + obs_t;
     } else if (tid == n) {
@@ -118,7 +157,7 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
     }
     if (real) {
       out[static_cast<size_t>(t) * S + tid] = prev[tid];
-      buf[(1 - p) * S + tid] = nv;
+      buf[(1 - p) * stride + d_max + tid] = nv;
       cur = nv;
     }
     wv = vspl_warp_max(tid < n ? nv : -CUDART_INF_F);
@@ -137,6 +176,7 @@ __global__ void __launch_bounds__(32) banded_backtrace_kernel(
     int* __restrict__ states,              // [N, T]
     int T, int S, int d_max, float log_tiny, float log_c_uv, float log_c_vu,
     float log_c_uu) {
+  extern __shared__ float ring[];  // [VSPL_RING][S] t1m1 rows in flight
   const int lane = threadIdx.x;
   const int track = blockIdx.x;
   const int n = S - 1;
@@ -145,17 +185,17 @@ __global__ void __launch_bounds__(32) banded_backtrace_kernel(
   int* out = states + static_cast<size_t>(track) * T;
   int s = last_states[track];
 
-  float nxt[VSPL_ROW_REGS];
-  vspl_load_row(rows + static_cast<size_t>(len - 1) * S, lane, S, nxt);
+  // rows len-1, len-2, ... (row 0 is never read) start copying, one group each
+  for (int i = 0; i < VSPL_RING; ++i) {
+    const int r = len - 1 - i;
+    vspl_stage_row(ring + (r >= 1 ? r % VSPL_RING : 0) * S,
+                   rows + static_cast<size_t>(max(r, 0)) * S, lane, S, r >= 1);
+  }
   for (int t = len - 1;; --t) {
     if (lane == 0) out[t] = s;
     if (t == 0) break;
-    float cur[VSPL_ROW_REGS];
-#pragma unroll
-    for (int k = 0; k < VSPL_ROW_REGS; ++k) cur[k] = nxt[k];
-    if (t > 1) vspl_load_row(rows + static_cast<size_t>(t - 1) * S, lane, S, nxt);
-    if (t > VSPL_L2_AHEAD)
-      vspl_prefetch_row_l2(rows + static_cast<size_t>(t - VSPL_L2_AHEAD) * S, lane, S);
+    vspl_wait_oldest_row();  // row t has landed
+    const float* cur = ring + (t % VSPL_RING) * S;
 
     // s_{t-1} = first-max argmax_x (T1[t-1][x] + logB[s_t, x]), with the
     // logB row rebuilt from the profiles (ascending x per lane, strict >)
@@ -175,7 +215,7 @@ __global__ void __launch_bounds__(32) banded_backtrace_kernel(
           r = (e >= -d_max && e <= d_max) ? __ldg(bv + __ldg(cls + e + d_max) * S + x)
                                           : log_tiny;
         }
-        const float c = cur[k] + r;
+        const float c = cur[x] + r;
         if (c > best) {
           best = c;
           best_i = x;
@@ -183,7 +223,12 @@ __global__ void __launch_bounds__(32) banded_backtrace_kernel(
       }
     }
     s = vspl_warp_argmax(best, best_i);
+    // refill the slot just read with the row VSPL_RING steps ahead
+    const int r = t - VSPL_RING;
+    vspl_stage_row(ring + (r >= 1 ? r % VSPL_RING : 0) * S,
+                   rows + static_cast<size_t>(max(r, 0)) * S, lane, S, r >= 1);
   }
+  vspl_wait_all_rows();
 }
 
 extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
@@ -197,17 +242,20 @@ extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
   if (threads > 1024 || N <= 0 || T <= 0) return cudaErrorInvalidValue;
   const int W = 2 * d_max + 1;
   const size_t base_smem =
-      (2 * S + 2 * VSPL_MAX_WARPS) * sizeof(float) + W * sizeof(int);
+      (2 * vspl_carry_stride(S, d_max) + 2 * VSPL_MAX_WARPS) * sizeof(float) +
+      W * sizeof(int);
   const size_t bv_bytes = static_cast<size_t>(n_classes) * S * sizeof(float);
   const int bv_in_smem = base_smem + bv_bytes <= VSPL_BANDED_SMEM_BUDGET;
   const size_t smem = base_smem + (bv_in_smem ? bv_bytes : 0);
+  auto kernel = W <= VSPL_BAND_REGS ? banded_forward_kernel<true>
+                                    : banded_forward_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        banded_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  banded_forward_kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       log_obs, bv, cls, log_pi, lengths, t1m1, t1_last, T, S, d_max, n_classes,
       bv_in_smem, log_tiny, log_c_uv, log_c_vu, log_c_uu);
   return static_cast<int>(cudaGetLastError());
@@ -220,7 +268,14 @@ extern "C" int vspl_banded_backtrace(const float* t1m1, const float* bv,
                                      float log_c_uv, float log_c_vu,
                                      float log_c_uu, void* stream) {
   if (S > 32 * VSPL_ROW_REGS || N <= 0 || T <= 0) return cudaErrorInvalidValue;
-  banded_backtrace_kernel<<<N, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = vspl_ring_bytes(S);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        banded_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  banded_backtrace_kernel<<<N, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       t1m1, bv, cls, last_states, lengths, states, T, S, d_max, log_tiny,
       log_c_uv, log_c_vu, log_c_uu);
   return static_cast<int>(cudaGetLastError());

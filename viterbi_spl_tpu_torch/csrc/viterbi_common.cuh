@@ -6,10 +6,10 @@
 
 #define VSPL_FULL_MASK 0xffffffffu
 #define VSPL_MAX_WARPS 32
-// Row values a backtrace lane keeps in registers: S <= 32 * VSPL_ROW_REGS.
+// Row values a backtrace lane handles: S <= 32 * VSPL_ROW_REGS.
 #define VSPL_ROW_REGS 32
-// Frames ahead of the chase whose rows the backtraces pull into L2.
-#define VSPL_L2_AHEAD 8
+// t1m1 rows a backtrace keeps in flight in its shared-memory ring.
+#define VSPL_RING 16
 
 __device__ __forceinline__ float vspl_warp_max(float v) {
 #pragma unroll
@@ -34,20 +34,35 @@ __device__ __forceinline__ int vspl_warp_argmax(float v, int i) {
   return i;
 }
 
-// Loads this lane's share of one [S] row (x = lane + 32 k) into registers.
-__device__ __forceinline__ void vspl_load_row(const float* __restrict__ row,
-                                              int lane, int S,
-                                              float (&r)[VSPL_ROW_REGS]) {
-#pragma unroll
-  for (int k = 0; k < VSPL_ROW_REGS; ++k) {
-    const int x = lane + 32 * k;
-    r[k] = x < S ? row[x] : 0.0f;
+// Starts an asynchronous copy of this lane's share (x = lane + 32 k) of
+// one [S] row from device memory into shared memory (when `active`), and
+// commits it as one group — an empty group when not active, so that every
+// step commits exactly one. Each lane later reads back only the elements
+// it copied itself, so cp.async.wait_group alone makes them visible: no
+// barrier is needed.
+__device__ __forceinline__ void vspl_stage_row(float* dst, const float* src,
+                                               int lane, int S, bool active) {
+  if (active) {
+    for (int x = lane; x < S; x += 32) {
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + x));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + x));
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Asks L2 to fetch this lane's share of a row the chase reaches later.
-__device__ __forceinline__ void vspl_prefetch_row_l2(const float* row, int lane,
-                                                     int S) {
-  for (int x = lane; x < S; x += 32)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(row + x));
+// Waits until at most VSPL_RING - 1 of this lane's row copies are pending,
+// i.e. until the oldest staged row has landed.
+__device__ __forceinline__ void vspl_wait_oldest_row() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(VSPL_RING - 1));
+}
+
+// Waits for every pending row copy of this lane (before the block exits).
+__device__ __forceinline__ void vspl_wait_all_rows() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Dynamic shared memory of a backtrace block: the ring of t1m1 rows.
+inline size_t vspl_ring_bytes(int S) {
+  return static_cast<size_t>(VSPL_RING) * S * sizeof(float);
 }

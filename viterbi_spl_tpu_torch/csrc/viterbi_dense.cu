@@ -25,8 +25,9 @@
 // independent max chains per thread for instruction-level parallelism.
 //
 // K4 is a chain of T dependent argmax steps per track; each reads one
-// t1m1 row (prefetched, as in the banded backtrace) and one logB row chosen
-// by the current state (an L2 hit). One warp per track.
+// t1m1 row (staged VSPL_RING steps ahead in a shared-memory ring, as in the
+// banded backtrace) and one logB row chosen by the current state (an L2
+// hit, which no prefetch can hide). One warp per track.
 
 #include "viterbi_common.cuh"
 
@@ -94,6 +95,7 @@ __global__ void __launch_bounds__(32) dense_backtrace_kernel(
     const int* __restrict__ lengths,      // [N]
     int* __restrict__ states,             // [N, T]
     int T, int S) {
+  extern __shared__ float ring[];  // [VSPL_RING][S] t1m1 rows in flight
   const int lane = threadIdx.x;
   const int track = blockIdx.x;
   const int len = lengths[track];
@@ -101,18 +103,16 @@ __global__ void __launch_bounds__(32) dense_backtrace_kernel(
   int* out = states + static_cast<size_t>(track) * T;
   int s = last_states[track];
 
-  float nxt[VSPL_ROW_REGS];
-  vspl_load_row(rows + static_cast<size_t>(len - 1) * S, lane, S, nxt);
+  for (int i = 0; i < VSPL_RING; ++i) {
+    const int r = len - 1 - i;
+    vspl_stage_row(ring + (r >= 1 ? r % VSPL_RING : 0) * S,
+                   rows + static_cast<size_t>(max(r, 0)) * S, lane, S, r >= 1);
+  }
   for (int t = len - 1;; --t) {
     if (lane == 0) out[t] = s;
     if (t == 0) break;
-    float cur[VSPL_ROW_REGS];
-#pragma unroll
-    for (int k = 0; k < VSPL_ROW_REGS; ++k) cur[k] = nxt[k];
-    if (t > 1) vspl_load_row(rows + static_cast<size_t>(t - 1) * S, lane, S, nxt);
-    if (t > VSPL_L2_AHEAD)
-      vspl_prefetch_row_l2(rows + static_cast<size_t>(t - VSPL_L2_AHEAD) * S, lane, S);
-
+    vspl_wait_oldest_row();  // row t has landed
+    const float* cur = ring + (t % VSPL_RING) * S;
     const float* brow = logB + static_cast<size_t>(s) * S;
     float best = -CUDART_INF_F;
     int best_i = 0x7fffffff;
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(32) dense_backtrace_kernel(
     for (int k = 0; k < VSPL_ROW_REGS; ++k) {
       const int x = lane + 32 * k;
       if (x < S) {
-        const float c = cur[k] + __ldg(brow + x);
+        const float c = cur[x] + __ldg(brow + x);
         if (c > best) {
           best = c;
           best_i = x;
@@ -128,7 +128,11 @@ __global__ void __launch_bounds__(32) dense_backtrace_kernel(
       }
     }
     s = vspl_warp_argmax(best, best_i);
+    const int r = t - VSPL_RING;
+    vspl_stage_row(ring + (r >= 1 ? r % VSPL_RING : 0) * S,
+                   rows + static_cast<size_t>(max(r, 0)) * S, lane, S, r >= 1);
   }
+  vspl_wait_all_rows();
 }
 
 extern "C" int vspl_dense_forward(const float* log_obs, const float* logA,
@@ -148,7 +152,14 @@ extern "C" int vspl_dense_backtrace(const float* t1m1, const float* logB,
                                     int* states, int N, int T, int S,
                                     void* stream) {
   if (S > 32 * VSPL_ROW_REGS || N <= 0 || T <= 0) return cudaErrorInvalidValue;
-  dense_backtrace_kernel<<<N, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = vspl_ring_bytes(S);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  dense_backtrace_kernel<<<N, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       t1m1, logB, last_states, lengths, states, T, S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -99,6 +100,25 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.vspl_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def host_lengths(lengths, N: int, T: int) -> np.ndarray:
+    """Validated per-track lengths as host int32 (1 <= len <= T): a kernel
+    trusts them as loop bounds."""
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.cpu().numpy()
+    lengths = np.asarray(lengths, np.int32)
+    if lengths.shape != (N,) or lengths.min() < 1 or lengths.max() > T:
+        raise ValueError(f"lengths must be [N={N}] in [1, T={T}], got {lengths}")
+    return lengths
+
+
+def cuda_operand(x: torch.Tensor, name: str, dtype=torch.float32) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dtype}, got {x.dtype}")
+    return x
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -27,11 +27,6 @@ import numpy as np
 from .hmm.params import single_side_d_max
 from .metrics.mel_eval import hz_to_midi
 
-DCNET_SWITCH = np.array(
-    [[0.98713454, 0.01286546], [0.01002112, 0.98997888]], np.float64
-)
-JDC_SWITCH = np.array([[0.9779, 0.0221], [0.0172, 0.9828]], np.float64)
-
 
 def note_grid(note_min: float, n_bins: int, bins_per_semitone: float) -> np.ndarray:
     return (note_min + np.arange(n_bins) / bins_per_semitone).astype(np.float32)

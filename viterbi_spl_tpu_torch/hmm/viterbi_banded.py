@@ -300,25 +300,6 @@ _SIGNATURES = {
 }
 
 
-def host_lengths(lengths, N: int, T: int) -> np.ndarray:
-    """Validated per-track lengths as host int32 (1 <= len <= T): a kernel
-    trusts them as loop bounds."""
-    if isinstance(lengths, torch.Tensor):
-        lengths = lengths.cpu().numpy()
-    lengths = np.asarray(lengths, np.int32)
-    if lengths.shape != (N,) or lengths.min() < 1 or lengths.max() > T:
-        raise ValueError(f"lengths must be [N={N}] in [1, T={T}], got {lengths}")
-    return lengths
-
-
-def _cuda_operand(x: torch.Tensor, name: str, dtype=torch.float32) -> torch.Tensor:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous {dtype}, got {x.dtype}")
-    return x
-
-
 def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths):
     """K1: banded batched forward DP. Same contract as banded_forward_plain;
     on the GPU, rows of t1m1 at or beyond a track's length are left
@@ -326,10 +307,10 @@ def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths):
     N, T, S = log_obs.shape
     if S != bs.S:
         raise ValueError(f"log_obs has {S} states, the structure {bs.S}")
-    lens = host_lengths(lengths, N, T)
+    lens = cuda_lib.host_lengths(lengths, N, T)
     if log_obs.device.type == "cpu":
         return banded_forward_plain(bs, torch.as_tensor(log_pi), log_obs, lens)
-    dev = _cuda_operand(log_obs, "log_obs").device
+    dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
     bv, cls = _profiles(bs, dev)
     log_pi = torch.as_tensor(log_pi, dtype=torch.float32).to(dev).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
@@ -353,10 +334,10 @@ def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengt
     N, T, S = t1m1.shape
     if S != bs.S:
         raise ValueError(f"t1m1 has {S} states, the structure {bs.S}")
-    lens = host_lengths(lengths, N, T)
+    lens = cuda_lib.host_lengths(lengths, N, T)
     if t1m1.device.type == "cpu":
         return banded_backtrace_plain(bs, t1m1, last_states, lens)
-    dev = _cuda_operand(t1m1, "t1m1").device
+    dev = cuda_lib.cuda_operand(t1m1, "t1m1").device
     bv, cls = _profiles(bs, dev)
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)

@@ -27,13 +27,7 @@ import torch
 from .. import cuda_lib
 from ..utils import resolve_device
 from .viterbi import first_argmax, log_obs_fn, prepare_log_params
-from .viterbi_banded import (
-    _cuda_operand,
-    banded_backtrace,
-    banded_forward,
-    extract_banded_structure,
-    host_lengths,
-)
+from .viterbi_banded import banded_backtrace, banded_forward, extract_banded_structure
 
 
 def dense_forward_plain(log_B, log_pi, log_obs, lengths):
@@ -84,14 +78,14 @@ def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths):
     on the GPU, rows of t1m1 at or beyond a track's length are left
     unwritten."""
     N, T, S = log_obs.shape
-    lens = host_lengths(lengths, N, T)
+    lens = cuda_lib.host_lengths(lengths, N, T)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
     log_pi = torch.as_tensor(log_pi, dtype=torch.float32)
     if log_B.shape != (S, S) or log_pi.shape != (S,):
         raise ValueError(f"bad shapes log_B={tuple(log_B.shape)} log_pi={tuple(log_pi.shape)}")
     if log_obs.device.type == "cpu":
         return dense_forward_plain(log_B, log_pi, log_obs, lens)
-    dev = _cuda_operand(log_obs, "log_obs").device
+    dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
     log_A = log_B.to(dev).t().contiguous()  # log_A[s', s] = log_B[s, s']
     log_pi = log_pi.to(dev).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
@@ -112,13 +106,13 @@ def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths):
     """K4: dense batched reverse chase. Returns states [N, T] int32;
     entries at or beyond each track's length are unspecified."""
     N, T, S = t1m1.shape
-    lens = host_lengths(lengths, N, T)
+    lens = cuda_lib.host_lengths(lengths, N, T)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
     if log_B.shape != (S, S):
         raise ValueError(f"log_B must be [{S}, {S}], got {tuple(log_B.shape)}")
     if t1m1.device.type == "cpu":
         return dense_backtrace_plain(log_B, t1m1, last_states, lens)
-    dev = _cuda_operand(t1m1, "t1m1").device
+    dev = cuda_lib.cuda_operand(t1m1, "t1m1").device
     log_B = log_B.to(dev).contiguous()
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
@@ -147,8 +141,7 @@ KERNEL_WRAPPERS = {
 
 
 def viterbi_decode_batch_logobs(
-    *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths,
-    allow_banded: bool = True,
+    *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths
 ) -> torch.Tensor:
     """Decode a [N, T, S] batch of LOG observations (unvoiced state last)
     with per-track lengths. Returns states [N, T] int32 on log_obs's
@@ -158,10 +151,7 @@ def viterbi_decode_batch_logobs(
     if S_obs != S:
         raise ValueError(f"log_obs has {S_obs} states, the matrix {S}")
     log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
-    bstruct = (
-        extract_banded_structure(np.asarray(transition_matrix))
-        if allow_banded else None
-    )
+    bstruct = extract_banded_structure(np.asarray(transition_matrix))
     if bstruct is not None:
         t1_last, t1m1 = banded_forward(bstruct, log_pi, log_obs, lengths)
     else:
@@ -174,8 +164,7 @@ def viterbi_decode_batch_logobs(
 
 
 def viterbi_decode_batch(
-    *, transition_matrix, prob_init, probs_st_list, device=None,
-    allow_banded: bool = True,
+    *, transition_matrix, prob_init, probs_st_list, device=None
 ) -> list[np.ndarray]:
     """Decode a list of [S, T_i] observation-probability tracks together
     (numpy arrays or tensors). Returns [T_i] int64 state paths, bit-identical
@@ -188,6 +177,6 @@ def viterbi_decode_batch(
         obs[i, : lengths[i]] = torch.as_tensor(p, dtype=torch.float32).to(dev).T
     states = viterbi_decode_batch_logobs(
         transition_matrix=transition_matrix, prob_init=prob_init,
-        log_obs=log_obs_fn(obs), lengths=lengths, allow_banded=allow_banded,
+        log_obs=log_obs_fn(obs), lengths=lengths,
     ).cpu().numpy()
     return [states[i, :L].astype(np.int64) for i, L in enumerate(lengths)]

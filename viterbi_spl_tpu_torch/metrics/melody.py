@@ -28,17 +28,6 @@ import dataclasses
 import numpy as np
 import torch
 
-METRIC_NAMES = (
-    "vrr",
-    "vfa",
-    "va",
-    "rpa_strict",
-    "rpa_wide",
-    "rca_strict",
-    "rca_wide",
-    "oa",
-)
-
 
 def est_notes_interp(est_peak_indices, est_probs, note_min, bins_per_semitone, n_bins):
     """Weighted est-note interpolation over the +/-1 bins around the peak.
