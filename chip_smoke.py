@@ -10,11 +10,14 @@ Phases (one JSON line each):
   2. kernels against their plain versions on the card (N=16, T<=1024,
      ragged lengths): K1/K2 at 361 states (tonet, d_max 14) and 722 (jdc,
      d_max 40), K3/K4 at 722 (imm's analytic matrix) and 361 (a random
-     dense matrix); exact equality, and track 0 against the oracle.
+     dense matrix); exact equality (tolerance 0), and track 0 against the
+     oracle.
   3. the main path: tonet artifacts from synthetic note tracks, 8 logit
      files, the decode CLI on its default device for all three methods
      (K1/K2 must launch), then a DecoderSetup with imm's analytic matrix
-     (K3/K4 must launch); track 0 against the oracle each time.
+     (K3/K4 must launch); track 0 against the oracle each time. After the
+     launch counts are read, each kernel against its plain version again,
+     exactly, on the log observations of those two batches.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense).
   5. the kernels line: per kernel its launches on the main path, equality
@@ -104,16 +107,18 @@ def uniform_log_obs(N, T, S, seed, dev):
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean ms of fn() over iters launches, after one warm-up, by CUDA events."""
+    """Median ms of fn() over iters back-to-back launches after one warm-up:
+    a CUDA event between consecutive launches times each one, so a one-off
+    stall (an allocation, a neighbour on the host) moves no reading."""
     fn()
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    events[0].record()
+    for ev in events[1:]:
         fn()
-    stop.record()
+        ev.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return float(np.median([a.elapsed_time(b) for a, b in zip(events, events[1:])]))
 
 
 def kernel_pair(kind, A, pi, log_obs, lengths):
@@ -138,9 +143,45 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
     return (fwd, bt, fwd_p, bt_p), log_B, log_pi
 
 
-def phase_equality(dev) -> dict:
-    """Kernels against plain versions and the oracle; returns the largest
-    absolute difference per kernel id."""
+def compare_kernels(kind, A, pi, log_obs, lengths):
+    """One matrix's forward and backtrace kernels against their plain
+    versions on the same inputs: (forward error, backtrace error, track 0
+    equals the oracle). The errors are the largest absolute differences of
+    t1_last, of t1m1 up to each track's length and of the states."""
+    (fwd, bt, fwd_p, bt_p), log_B, log_pi = kernel_pair(kind, A, pi, log_obs, lengths)
+    t1_k, t1m1_k = fwd(log_obs, lengths)
+    t1_p, t1m1_p = fwd_p(log_obs, lengths)
+    last = torch.argmax(t1_p, dim=1).to(torch.int32)
+    st_k = bt(t1m1_k, last, lengths)
+    st_p = bt_p(t1m1_p, last, lengths)
+    torch.cuda.synchronize()
+    f_err = float((t1_k - t1_p).abs().max())
+    b_err = 0.0
+    for n, L in enumerate(lengths):
+        L = int(L)
+        f_err = max(f_err, float((t1m1_k[n, :L] - t1m1_p[n, :L]).abs().max()))
+        b_err = max(b_err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
+    L0 = int(lengths[0])
+    oracle = viterbi_oracle_log(log_B, log_pi, log_obs[0, :L0].cpu().numpy())
+    return f_err, b_err, bool(np.array_equal(st_k[0, :L0].cpu().numpy(), oracle))
+
+
+def record_errors(errs, kind, label, N, T, f_err, b_err, oracle_ok) -> None:
+    """Emit one equality line, fold it into errs, and fail unless exact."""
+    kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
+    errs[kf] = max(errs[kf], f_err)
+    errs[kb] = max(errs[kb], b_err)
+    emit({"phase": "equality", "kind": kind, "shape": label, "N": N, "T": T,
+          "forward_max_abs_err": f_err, "backtrace_max_abs_err": b_err,
+          "track0_matches_oracle": oracle_ok})
+    check(f_err == 0.0 and b_err == 0.0, f"{kind} {label}: kernels equal their plain versions")
+    check(oracle_ok, f"{kind} {label}: track 0 equals the oracle")
+
+
+def phase_equality(dev, errs) -> None:
+    """Kernels against plain versions and the oracle at N=16, T=1024 with
+    ragged lengths; folds the largest absolute difference per kernel id
+    into errs."""
     rng = np.random.default_rng(1)
     cases = [
         ("banded", 361, shaped_matrix(360, hmm_params.single_side_d_max(0.01, 60), 0)),
@@ -148,41 +189,30 @@ def phase_equality(dev) -> dict:
         ("dense", 722, (hmm_params.imm_transition_matrix(20, 721), np.full(722, 1.0 / 722))),
         ("dense", 361, dense_matrix(361, 2)),
     ]
-    errs = {k: 0.0 for k in KERNEL_INFO}
     N, T = 16, 1024
     for kind, S, (A, pi) in cases:
         lengths = rng.integers(T // 4, T + 1, N).astype(np.int32)
         lengths[0], lengths[1] = T, 1
         log_obs = uniform_log_obs(N, T, S, seed=S, dev=dev)
-        (fwd, bt, fwd_p, bt_p), log_B, log_pi = kernel_pair(kind, A, pi, log_obs, lengths)
-        t1_k, t1m1_k = fwd(log_obs, lengths)
-        t1_p, t1m1_p = fwd_p(log_obs, lengths)
-        last = torch.argmax(t1_p, dim=1).to(torch.int32)
-        st_k = bt(t1m1_k, last, lengths)
-        st_p = bt_p(t1m1_p, last, lengths)
-        torch.cuda.synchronize()
-        f_err = float((t1_k - t1_p).abs().max())
-        b_err = 0.0
-        for n in range(N):
-            L = int(lengths[n])
-            f_err = max(f_err, float((t1m1_k[n, :L] - t1m1_p[n, :L]).abs().max()))
-            b_err = max(b_err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
-        oracle = viterbi_oracle_log(log_B, log_pi, log_obs[0].cpu().numpy())
-        oracle_ok = bool(np.array_equal(st_k[0].cpu().numpy(), oracle))
-        kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
-        errs[kf] = max(errs[kf], f_err)
-        errs[kb] = max(errs[kb], b_err)
-        emit({"phase": "equality", "kind": kind, "S": S, "N": N, "T": T,
-              "forward_max_abs_err": f_err, "backtrace_max_abs_err": b_err,
-              "track0_matches_oracle": oracle_ok})
-        check(f_err == 0.0 and b_err == 0.0, f"{kind} {S}: kernels equal their plain versions")
-        check(oracle_ok, f"{kind} {S}: track 0 equals the oracle")
-    return errs
+        record_errors(errs, kind, str(S), N, T, *compare_kernels(kind, A, pi, log_obs, lengths))
 
 
-def phase_main_path(dev) -> dict:
+def padded_log_obs(setup, logits_list):
+    """The [N, T_max, S] log observations and the lengths that
+    DecoderSetup.decode_batch hands the kernels for these tracks."""
+    obs = [setup.observation_probs(lg) for lg in logits_list]
+    lengths = np.array([o.shape[0] for o in obs], np.int32)
+    batch = torch.zeros((len(obs), int(lengths.max()), obs[0].shape[1]), device=setup.device)
+    for i, o in enumerate(obs):
+        batch[i, : lengths[i]] = o
+    return log_obs_fn(batch), lengths
+
+
+def phase_main_path(dev, errs) -> dict:
     """The decode service through its entry points; returns the launches
-    of each kernel in this run."""
+    of each kernel in this run. Then holds each kernel against its plain
+    version at the shapes the main path gave it, folding the errors into
+    errs."""
     rng = np.random.default_rng(3)
     for wrapper in VD.KERNEL_WRAPPERS.values():
         wrapper.launches = 0
@@ -230,6 +260,7 @@ def phase_main_path(dev) -> dict:
         cli_s = time.perf_counter() - t0
         banded = {k: VD.KERNEL_WRAPPERS[k].launches for k in ("K1", "K2")}
         check(banded["K1"] >= 3 and banded["K2"] >= 3, f"CLI ran K1/K2: {banded}")
+        cli_setup, cli_logits = setup, [np.load(p) for p in paths]
 
     # the dense path: imm's analytic matrix through DecoderSetup
     imm = family_spec("imm")
@@ -258,6 +289,14 @@ def phase_main_path(dev) -> dict:
           "cli_frames": frames, "cli_seconds": cli_s, "imm_tracks": len(logits),
           "launches": launches})
     check(all(v > 0 for v in launches.values()), f"every kernel ran on the main path: {launches}")
+
+    # the kernels against their plain versions on the main path's inputs
+    # (after the counts are read: these launches do not count)
+    for kind, label, st, lgs in (("banded", "main path tonet 361", cli_setup, cli_logits),
+                                 ("dense", "main path imm 722", setup, logits)):
+        log_obs, lengths = padded_log_obs(st, lgs)
+        record_errors(errs, kind, label, len(lengths), log_obs.shape[1], *compare_kernels(
+            kind, st.transition_matrix, st.init_probs, log_obs, lengths))
     return launches
 
 
@@ -307,7 +346,7 @@ def phase_timing(dev, shapes) -> dict:
         log_obs = uniform_log_obs(N, T, S, seed=7, dev=dev)
         (fwd, bt, fwd_p, bt_p), log_B, log_pi = kernel_pair(kind, A, pi, log_obs, lengths)
         kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
-        iters = 3 if T * N > 1 << 20 else 10
+        iters = 5 if T * N > 1 << 20 else 10
         out = {}
         ms_f = cuda_ms(lambda: out.update(f=fwd(log_obs, lengths)), iters)
         t1_last, t1m1 = out.pop("f")
@@ -375,8 +414,9 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_seconds": build_s, "ptxas": ptxas})
 
-    errs = phase_equality(dev)
-    launches = phase_main_path(dev)
+    errs = {k: 0.0 for k in KERNEL_INFO}
+    phase_equality(dev, errs)
+    launches = phase_main_path(dev, errs)
     timing = phase_timing(dev, full_width_shapes())
 
     headline = {"K1": "tonet 361", "K2": "tonet 361", "K3": "imm 722", "K4": "imm 722"}

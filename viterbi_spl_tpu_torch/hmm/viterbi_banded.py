@@ -295,7 +295,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vspl_banded_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P],
-    "vspl_banded_backtrace": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "vspl_banded_backtrace": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _F, _F, _F, _P],
 }
 
@@ -346,7 +346,7 @@ def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengt
     P = cuda_lib.ptr
     rc = lib.vspl_banded_backtrace(
         P(t1m1), P(bv), P(cls), P(last), P(lens_d), P(states), N, T, S,
-        bs.d_max, LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu,
+        bs.d_max, bv.shape[0], LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu,
         cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "banded backtrace (K2)")
