@@ -1,7 +1,7 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds the decode kernels
-from csrc/, holds each against its plain PyTorch version and the NumPy
-oracle, drives the decode service end to end through its entry points, and
-times the kernels at full width.
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
+csrc/, holds each against its plain PyTorch version and the NumPy oracle,
+drives the decode service and its fused serving path end to end through
+their entry points, and times the kernels at full width.
 
     python3 chip_smoke.py
 
@@ -11,17 +11,36 @@ Phases (one JSON line each):
      ragged lengths): K1/K2 at 361 states (tonet, d_max 14) and 722 (jdc,
      d_max 40), K3/K4 at 722 (imm's analytic matrix) and 361 (a random
      dense matrix); exact equality (tolerance 0), and track 0 against the
-     oracle.
+     oracle. K5/K6 at 361 bins (spw 5) and 722 (spw 16 and 20) under the
+     observation contract (lanes at log TINY bit-equal, rtol 2e-4 with atol
+     1e-6 above -80, at most log 2 in the floor region, the unvoiced lane
+     within rtol 1e-6); K9 at tonet 361 and jdc 722 for all three methods,
+     bit-equal to K5/K6 -> K1, within the observations' summed error of its
+     plain version, and K9 -> K2's track 0 against the oracle.
   3. the main path: tonet artifacts from synthetic note tracks, 8 logit
      files, the decode CLI on its default device for all three methods
-     (K1/K2 must launch), then a DecoderSetup with imm's analytic matrix
-     (K3/K4 must launch); track 0 against the oracle each time. After the
+     (exactly K1/K2 must launch), then a DecoderSetup with imm's analytic
+     matrix (exactly K3/K4); track 0 against the oracle each time. After the
      launch counts are read, each kernel against its plain version again,
      exactly, on the log observations of those two batches.
+  3b. the fused serving path, its counts set to 0 just before its entry
+     points and read just after them: the CLI with --fused-obs for all
+     three methods (K5 or K6 -> K1/K2), an imm DecoderSetup(fused_obs=True)
+     (K5 -> K3/K4), and viterbi_decode_batch_fused_obs on the CLI batch
+     (K9 -> K2), each call required to launch exactly those kernels. Then
+     each path's melody lines equal the default path's, track 0 equals the
+     oracle on the port's own fused log observations, and K5, K6 and K9
+     hold against their plain versions on those inputs.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense).
-  5. the kernels line: per kernel its launches on the main path, equality
-     error, time, plain-version time, bound and what bounds it.
+  4b. bench.py's two serving chains: 361 states, N=128, T=8192, spw 5;
+     722 states, N=64, T=4096, spw 16, d_max 40, track 0 at length 1024.
+     ms and frames/s of K5 alone, K6 (scaled) alone, K5 -> K1 -> argmax ->
+     K2, K9 -> K2, and the default path (the PyTorch observation model, the
+     log, then K1/K2); track 0 against the oracle on K5's log observations.
+  5. the kernels line: per kernel its launches on the main path, error
+     against its plain version, time, plain-version time, bound and what
+     bounds it.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -29,6 +48,7 @@ without CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,9 +68,11 @@ from viterbi_spl_tpu_torch.cli.hmm_artifacts import (
 )
 from viterbi_spl_tpu_torch.families import family_spec
 from viterbi_spl_tpu_torch.harness.evaluate import DecoderSetup
+from viterbi_spl_tpu_torch.hmm import obs_fused as OF
 from viterbi_spl_tpu_torch.hmm import params as hmm_params
 from viterbi_spl_tpu_torch.hmm import viterbi_banded as VB
 from viterbi_spl_tpu_torch.hmm import viterbi_dense as VD
+from viterbi_spl_tpu_torch.hmm.obs import shaun_observation_probs
 from viterbi_spl_tpu_torch.hmm.oracle import viterbi_oracle_log
 from viterbi_spl_tpu_torch.hmm.viterbi import log_obs_fn, prepare_log_params
 
@@ -68,6 +90,12 @@ KERNEL_INFO = {
            "viterbi_spl_tpu/hmm/viterbi_pallas.py:507"),
     "K4": ("dense_backtrace", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
            "viterbi_spl_tpu/hmm/viterbi_pallas.py:558"),
+    "K5": ("shaun_log_obs", "viterbi_spl_tpu_torch/csrc/obs.cu",
+           "viterbi_spl_tpu/hmm/obs_pallas.py:320"),
+    "K6": ("softmax_log_obs", "viterbi_spl_tpu_torch/csrc/obs.cu",
+           "viterbi_spl_tpu/hmm/obs_pallas.py:239"),
+    "K9": ("banded_forward_obs", "viterbi_spl_tpu_torch/csrc/viterbi_banded.cu",
+           "viterbi_spl_tpu/hmm/viterbi_banded.py:467"),
 }
 
 
@@ -78,6 +106,18 @@ def check(cond, what: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def run_counted(expect: set, what: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), failing unless the kernels it launched are
+    exactly those in expect (a path that silently took another route
+    launches others, or none)."""
+    before = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    out = fn(*args, **kwargs)
+    made = {k: w.launches - before[k] for k, w in VD.KERNEL_WRAPPERS.items()}
+    check({k for k, n in made.items() if n} == expect,
+          f"{what} launched {made}, expected {sorted(expect)}")
+    return out
 
 
 def shaped_matrix(n_bins: int, d_max: int, seed: int):
@@ -208,59 +248,60 @@ def padded_log_obs(setup, logits_list):
     return log_obs_fn(batch), lengths
 
 
-def phase_main_path(dev, errs) -> dict:
-    """The decode service through its entry points; returns the launches
-    of each kernel in this run. Then holds each kernel against its plain
-    version at the shapes the main path gave it, folding the errors into
-    errs."""
+def phase_main_path(dev, errs, tmp: Path) -> tuple[dict, dict]:
+    """The decode service through its entry points, its counts set to 0
+    just before; returns the launches of each kernel in this run and what
+    the fused path compares with (inputs, artifacts, melody lines). Then
+    holds each kernel against its plain version at the shapes the main path
+    gave it, folding the errors into errs."""
     rng = np.random.default_rng(3)
     for wrapper in VD.KERNEL_WRAPPERS.values():
         wrapper.launches = 0
     spec = family_spec("tonet")
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        # synthetic note tracks (MIDI, 0 = unvoiced) -> quantized -> artifacts
-        notes = []
-        for _ in range(4):
-            walk = 60.0 + np.cumsum(rng.integers(-2, 3, 4000)) / 5.0
-            voiced = np.repeat(rng.random(200) > 0.25, 20)
-            notes.append(np.where(voiced, np.clip(walk, 40.0, 90.0), 0.0))
-        build_hmm_artifacts(quantize_tracks_for_family(notes, spec), spec, tmp / "hmm")
-        paths = []
-        for i, T in enumerate(np.linspace(2000, 8000, 8).astype(int)):
-            logits = rng.normal(-2.0, 1.0, (T, spec.n_bins)).astype(np.float32)
-            line = np.clip(180 + np.cumsum(rng.integers(-1, 2, T)), 0, spec.n_bins - 1)
-            logits[np.arange(T), line] += 6.0
-            paths.append(tmp / f"track{i}.npy")
-            np.save(paths[-1], logits)
-        frames = 0
-        t0 = time.perf_counter()
-        for method in METHODS:
-            out = tmp / method
-            recs = cli_decode.main(
-                [str(p) for p in paths]
-                + ["--family", "tonet", "--artifacts", str(tmp / "hmm"),
-                   "--out", str(out), "--method", method, "--format", "txt"]
-            )
-            for p, rec in zip(paths, recs):
-                n_lines = len((out / f"{p.stem}.txt").read_text().splitlines())
-                check(n_lines == len(rec["voiced"]) == np.load(p).shape[0],
-                      f"{method}: {p.stem}.txt has one line per frame")
-                frames += n_lines
-            # track 0 against the oracle on the same log observations
-            setup = cli_decode.build_setup(type("Args", (), dict(
-                family="tonet", artifacts=str(tmp / "hmm"), threshold=None,
-                method=method))())
-            check(setup.device.type == "cuda", "the CLI's default device is cuda")
-            log_obs = log_obs_fn(setup.observation_probs(np.load(paths[0]))).cpu().numpy()
-            log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
-            states = np.where(recs[0]["voiced"], recs[0]["bins"], spec.n_bins)
-            check(np.array_equal(states, viterbi_oracle_log(log_B, log_pi, log_obs)),
-                  f"{method}: CLI track 0 equals the oracle")
-        cli_s = time.perf_counter() - t0
-        banded = {k: VD.KERNEL_WRAPPERS[k].launches for k in ("K1", "K2")}
-        check(banded["K1"] >= 3 and banded["K2"] >= 3, f"CLI ran K1/K2: {banded}")
-        cli_setup, cli_logits = setup, [np.load(p) for p in paths]
+    # synthetic note tracks (MIDI, 0 = unvoiced) -> quantized -> artifacts
+    notes = []
+    for _ in range(4):
+        walk = 60.0 + np.cumsum(rng.integers(-2, 3, 4000)) / 5.0
+        voiced = np.repeat(rng.random(200) > 0.25, 20)
+        notes.append(np.where(voiced, np.clip(walk, 40.0, 90.0), 0.0))
+    build_hmm_artifacts(quantize_tracks_for_family(notes, spec), spec, tmp / "hmm")
+    paths = []
+    for i, T in enumerate(np.linspace(2000, 8000, 8).astype(int)):
+        logits = rng.normal(-2.0, 1.0, (T, spec.n_bins)).astype(np.float32)
+        line = np.clip(180 + np.cumsum(rng.integers(-1, 2, T)), 0, spec.n_bins - 1)
+        logits[np.arange(T), line] += 6.0
+        paths.append(tmp / f"track{i}.npy")
+        np.save(paths[-1], logits)
+    frames = 0
+    cli_recs, cli_setups = {}, {}
+    t0 = time.perf_counter()
+    for method in METHODS:
+        out = tmp / method
+        recs = run_counted({"K1", "K2"}, f"CLI {method}", cli_decode.main,
+            [str(p) for p in paths]
+            + ["--family", "tonet", "--artifacts", str(tmp / "hmm"),
+               "--out", str(out), "--method", method, "--format", "txt"]
+        )
+        for p, rec in zip(paths, recs):
+            n_lines = len((out / f"{p.stem}.txt").read_text().splitlines())
+            check(n_lines == len(rec["voiced"]) == np.load(p).shape[0],
+                  f"{method}: {p.stem}.txt has one line per frame")
+            frames += n_lines
+        # track 0 against the oracle on the same log observations
+        setup = cli_decode.build_setup(type("Args", (), dict(
+            family="tonet", artifacts=str(tmp / "hmm"), threshold=None,
+            method=method))())
+        check(setup.device.type == "cuda", "the CLI's default device is cuda")
+        log_obs = log_obs_fn(setup.observation_probs(np.load(paths[0]))).cpu().numpy()
+        log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
+        states = np.where(recs[0]["voiced"], recs[0]["bins"], spec.n_bins)
+        check(np.array_equal(states, viterbi_oracle_log(log_B, log_pi, log_obs)),
+              f"{method}: CLI track 0 equals the oracle")
+        cli_recs[method], cli_setups[method] = recs, setup
+    cli_s = time.perf_counter() - t0
+    banded = {k: VD.KERNEL_WRAPPERS[k].launches for k in ("K1", "K2")}
+    check(banded["K1"] >= 3 and banded["K2"] >= 3, f"CLI ran K1/K2: {banded}")
+    cli_setup, cli_logits = setup, [np.load(p) for p in paths]
 
     # the dense path: imm's analytic matrix through DecoderSetup
     imm = family_spec("imm")
@@ -278,7 +319,8 @@ def phase_main_path(dev, errs) -> dict:
         line = np.clip(360 + np.cumsum(rng.integers(-3, 4, T)), 0, imm.n_bins - 1)
         lg[np.arange(T), line] += 5.0
         logits.append(lg)
-    (voiced, bins), *_ = setup.decode_batch(logits)
+    imm_lines = run_counted({"K3", "K4"}, "imm DecoderSetup", setup.decode_batch, logits)
+    voiced, bins = imm_lines[0]
     log_obs = log_obs_fn(setup.observation_probs(logits[0])).cpu().numpy()
     log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
     check(np.array_equal(np.where(voiced, bins, imm.n_bins),
@@ -288,7 +330,8 @@ def phase_main_path(dev, errs) -> dict:
     emit({"phase": "main_path", "cli_tracks": len(paths), "cli_methods": list(METHODS),
           "cli_frames": frames, "cli_seconds": cli_s, "imm_tracks": len(logits),
           "launches": launches})
-    check(all(v > 0 for v in launches.values()), f"every kernel ran on the main path: {launches}")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")),
+          f"every kernel of the decode service ran on the main path: {launches}")
 
     # the kernels against their plain versions on the main path's inputs
     # (after the counts are read: these launches do not count)
@@ -297,12 +340,210 @@ def phase_main_path(dev, errs) -> dict:
         log_obs, lengths = padded_log_obs(st, lgs)
         record_errors(errs, kind, label, len(lengths), log_obs.shape[1], *compare_kernels(
             kind, st.transition_matrix, st.init_probs, log_obs, lengths))
+    ctx = dict(paths=paths, hmm=tmp / "hmm", cli_recs=cli_recs, cli_setups=cli_setups,
+               cli_logits=cli_logits, imm_setup=setup, imm_logits=logits, imm_lines=imm_lines)
+    return launches, ctx
+
+
+# ----------------------------------------------------------------------
+# The fused serving path: K5, K6 and K9.
+# ----------------------------------------------------------------------
+
+
+def obs_logits(rng, N, T, n_bins, dev):
+    """OF.contract_logits on the card."""
+    return torch.from_numpy(OF.contract_logits(rng, N, T, n_bins)).to(dev)
+
+
+def obs_cfg(method, spw, threshold, init_probs) -> dict:
+    return dict(method=method, spw=spw, threshold_logit=threshold, init_probs=init_probs)
+
+
+def check_obs(got, want, label) -> float:
+    """K5/K6 output against the plain version under the observation
+    contract; returns the largest absolute difference."""
+    res = OF.obs_contract(got.cpu().numpy(), want.cpu().numpy())
+    emit({"phase": "obs_equality", "shape": label, **res})
+    check(res["ok"], f"{label}: the observation kernel meets its contract against its plain version")
+    return res["max_abs_err"]
+
+
+def compare_k9(A, pi, logits, lengths, obs, label, errs) -> None:
+    """K9 against K5/K6 -> K1 (bit for bit) and against its plain version:
+    each T1 of the plain version differs by at most the summed largest
+    observation errors of the frames so far plus one rounding of the T1
+    magnitude per frame (max-plus steps move no error up); then K9 -> K2's
+    track 0 against the oracle on K5/K6's log observations."""
+    bs = VB.extract_banded_structure(A)
+    log_B, log_pi = prepare_log_params(A, pi)
+    t1_9, m_9 = VB.banded_forward_obs(bs, log_pi, logits, lengths, obs)
+    log_obs = OF.log_obs(logits, obs)
+    t1_1, m_1 = VB.banded_forward(bs, log_pi, log_obs, lengths)
+    t1_p, m_p = VB.banded_forward_obs_plain(bs, log_pi, logits, lengths, obs)
+    d_obs = (log_obs - OF.log_obs_plain(logits, obs)).abs().amax(dim=2)  # [N, T]
+    exact = float((t1_9 - t1_1).abs().max())
+    plain_err, ok = float((t1_9 - t1_p).abs().max()), True
+    for n, L in enumerate(lengths):
+        L = int(L)
+        exact = max(exact, float((m_9[n, :L] - m_1[n, :L]).abs().max()))
+        plain_err = max(plain_err, float((m_9[n, :L] - m_p[n, :L]).abs().max()))
+        mag = float(t1_p[n].abs().max())
+        allow = float(d_obs[n, :L].sum()) + L * float(np.spacing(np.float32(mag)))
+        ok = ok and float((t1_9[n] - t1_p[n]).abs().max()) <= allow
+    last = torch.argmax(t1_9, dim=1).to(torch.int32)
+    states = VB.banded_backtrace(bs, m_9, last, lengths)
+    L0 = int(lengths[0])
+    oracle_ok = bool(np.array_equal(
+        states[0, :L0].cpu().numpy(),
+        viterbi_oracle_log(log_B, log_pi, log_obs[0, :L0].cpu().numpy())))
+    errs["K9"] = max(errs["K9"], plain_err)
+    errs["K9_vs_K5K6_K1"] = max(errs["K9_vs_K5K6_K1"], exact)
+    emit({"phase": "k9_equality", "shape": label, "method": obs["method"],
+          "N": logits.shape[0], "T": logits.shape[1],
+          "max_abs_err_vs_k5k6_k1": exact, "max_abs_err_vs_plain": plain_err,
+          "within_obs_error_bound": ok, "track0_matches_oracle": oracle_ok})
+    check(exact == 0.0, f"K9 {label} {obs['method']}: bit-equal to K5/K6 -> K1")
+    check(ok, f"K9 {label} {obs['method']}: within the observation error of its plain version")
+    check(oracle_ok, f"K9 {label} {obs['method']}: K9 -> K2 track 0 equals the oracle")
+
+
+def phase_obs_equality(dev, errs) -> None:
+    """K5/K6 at 361 bins (spw 5) and 722 (spw 16, 20); K9 at tonet 361 and
+    jdc 722 for all three methods, with ragged lengths."""
+    rng = np.random.default_rng(5)
+    N, T = 16, 1024
+    for n_bins, spw in ((360, 5), (721, 16), (721, 20)):
+        lg = obs_logits(rng, N, T, n_bins, dev)
+        pri = rng.random(n_bins + 1).astype(np.float32) + 0.1
+        for method in METHODS:
+            obs = obs_cfg(method, spw, 0.3, pri / pri.sum())
+            err = check_obs(OF.log_obs(lg, obs), OF.log_obs_plain(lg, obs),
+                            f"{method} {n_bins + 1} spw {spw} N={N} T={T}")
+            k = "K5" if method == "shaun" else "K6"
+            errs[k] = max(errs[k], err)
+    for label, n_bins, d_max, spw in (("tonet 361", 360, 14, 5), ("jdc 722", 721, 40, 16)):
+        A, pi = shaped_matrix(n_bins, d_max, n_bins)
+        lengths = rng.integers(T // 4, T + 1, N).astype(np.int32)
+        lengths[0], lengths[1] = T, 1
+        lg = obs_logits(rng, N, T, n_bins, dev)
+        # the matrix's own pi has an unvoiced prior of 0 (its walk is all
+        # voiced): the scaled model divides by the priors, so take others
+        pri = rng.random(n_bins + 1).astype(np.float32) + 0.1
+        for method in METHODS:
+            compare_k9(A, pi, lg, lengths, obs_cfg(method, spw, 0.3, pri / pri.sum()), label, errs)
+
+
+def phase_fused_path(dev, errs, ctx) -> dict:
+    """The fused serving path through its entry points, the counts set to
+    0 just before them and read just after: the CLI with --fused-obs (K5 or
+    K6 -> K1/K2), an imm DecoderSetup(fused_obs=True) (K5 -> K3/K4) and the
+    fused decode API on the CLI batch (K9 -> K2), each call required to
+    launch exactly those kernels. Then, outside the counts: melody lines
+    must equal the default path's and track 0 the oracle on the port's own
+    fused log observations, and K5, K6 and K9 are held against their plain
+    versions on those inputs. Returns the launches."""
+    spec, imm = family_spec("tonet"), family_spec("imm")
+    paths, logits0 = ctx["paths"], ctx["cli_logits"][0]
+    imm_setup = dataclasses.replace(ctx["imm_setup"], fused_obs=True)
+    lengths = np.array([lg.shape[0] for lg in ctx["cli_logits"]], np.int32)
+    staged = np.zeros((len(lengths), lengths.max(), spec.n_bins), np.float32)
+    for i, lg in enumerate(ctx["cli_logits"]):
+        staged[i, : lengths[i]] = lg
+    batch = torch.from_numpy(staged).to(dev)
+
+    # the entry points alone, each launching its own kernels; nothing else
+    # launches a kernel until the counts are read
+    for wrapper in VD.KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    fused_recs = {
+        method: run_counted(
+            {"K5" if method == "shaun" else "K6", "K1", "K2"}, f"CLI --fused-obs {method}",
+            cli_decode.main,
+            [str(p) for p in paths]
+            + ["--family", "tonet", "--artifacts", str(ctx["hmm"]), "--out",
+               str(ctx["hmm"].parent / f"fused-{method}"), "--method", method,
+               "--format", "npz", "--fused-obs"])
+        for method in METHODS
+    }
+    cli_s = time.perf_counter() - t0
+    lines = run_counted({"K5", "K3", "K4"}, "imm DecoderSetup(fused_obs=True)",
+                        imm_setup.decode_batch, ctx["imm_logits"])
+    api_states = {}
+    for method in METHODS:
+        setup = ctx["cli_setups"][method]
+        api_states[method] = run_counted(
+            {"K9", "K2"}, f"viterbi_decode_batch_fused_obs {method}",
+            VD.viterbi_decode_batch_fused_obs, transition_matrix=setup.transition_matrix,
+            prob_init=setup.init_probs, logits=batch, lengths=lengths,
+            obs=setup.obs_config()).cpu().numpy()
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    emit({"phase": "fused_path", "cli_methods": list(METHODS), "cli_seconds": cli_s,
+          "imm_tracks": len(lines), "api_tracks": len(lengths), "launches": launches})
+    check(all(launches[k] > 0 for k in ("K5", "K6", "K9")),
+          f"every kernel of the fused path ran: {launches}")
+
+    # what came out (these launches come after the counts and do not count)
+    def oracle_ok(setup, states0, lg0):
+        lo = OF.log_obs(torch.from_numpy(lg0)[None].to(dev), setup.obs_config())[0]
+        log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
+        return np.array_equal(states0, viterbi_oracle_log(log_B, log_pi, lo.cpu().numpy()))
+
+    for method, recs in fused_recs.items():
+        for rec, want in zip(recs, ctx["cli_recs"][method]):
+            check(np.array_equal(rec["voiced"], want["voiced"])
+                  and np.array_equal(rec["bins"], want["bins"]),
+                  f"{method}: --fused-obs {rec['name']} equals the default path's line")
+        setup = dataclasses.replace(ctx["cli_setups"][method], fused_obs=True)
+        check(oracle_ok(setup, np.where(recs[0]["voiced"], recs[0]["bins"], spec.n_bins),
+                        logits0), f"{method}: --fused-obs track 0 equals the oracle")
+    for (v, b), (wv, wb) in zip(lines, ctx["imm_lines"]):
+        check(np.array_equal(v, wv) and np.array_equal(b, wb),
+              "imm DecoderSetup(fused_obs=True) equals the default path's lines")
+    check(oracle_ok(imm_setup, np.where(lines[0][0], lines[0][1], imm.n_bins),
+                    ctx["imm_logits"][0]), "imm fused track 0 equals the oracle")
+    for method, states in api_states.items():
+        for i, want in enumerate(ctx["cli_recs"][method]):
+            st = states[i, : lengths[i]]
+            check(np.array_equal(st < spec.n_bins, want["voiced"])
+                  and np.array_equal(np.minimum(st, spec.n_bins - 1), want["bins"]),
+                  f"{method}: the fused decode API's track {i} equals the default path's line")
+        check(oracle_ok(ctx["cli_setups"][method], states[0, : lengths[0]], logits0),
+              f"{method}: the fused decode API's track 0 equals the oracle")
+
+    # K5, K6 and K9 against their plain versions on those inputs (after the
+    # counts are read)
+    for method in METHODS:
+        obs = ctx["cli_setups"][method].obs_config()
+        err = check_obs(OF.log_obs(batch, obs), OF.log_obs_plain(batch, obs),
+                        f"main path tonet 361 {method}")
+        k = "K5" if method == "shaun" else "K6"
+        errs[k] = max(errs[k], err)
+        st = ctx["cli_setups"][method]
+        compare_k9(st.transition_matrix, st.init_probs, batch, lengths, obs,
+                   "main path tonet 361", errs)
+    imm_len = [lg.shape[0] for lg in ctx["imm_logits"]]
+    imm_batch = np.zeros((len(imm_len), max(imm_len), imm.n_bins), np.float32)
+    for i, lg in enumerate(ctx["imm_logits"]):
+        imm_batch[i, : imm_len[i]] = lg
+    imm_batch = torch.from_numpy(imm_batch).to(dev)
+    obs = imm_setup.obs_config()
+    errs["K5"] = max(errs["K5"], check_obs(OF.log_obs(imm_batch, obs),
+                                           OF.log_obs_plain(imm_batch, obs),
+                                           "main path imm 722 shaun spw 20"))
     return launches
 
 
-def bounds(kernel, S, lengths, bs=None):
-    """(bound_ms, bound_by) from the bytes each input and output needs once
-    and the FP32 operations this run's lengths need."""
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the FP32 operations over the FP32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def work(kernel, S, lengths, bs=None):
+    """(bytes, operations) of K1-K4: each input and output once, and the
+    FP32 operations this run's lengths need."""
     frames = int(np.sum(lengths))
     steps = int(np.sum(np.asarray(lengths) - 1))
     row = 4 * S
@@ -319,8 +560,20 @@ def bounds(kernel, S, lengths, bs=None):
     else:
         nbytes = steps * row + frames * 4 + (S * S * 4 if kernel == "K4" else 0)
         ops = steps * 2 * S  # one add and one compare per candidate
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return nbytes, ops
+
+
+def bounds(kernel, S, lengths, bs=None):
+    return bound(*work(kernel, S, lengths, bs))
+
+
+def obs_work(n_bins, spw, frames, peaks, softmax):
+    """(bytes, operations) of K5/K6 over `frames` frames: the logits read
+    and the log observations written once (and the log-prior row); per bin
+    the two window maxima and the peak test (2 spw + 1), per peak of this
+    run's data the exp, its sum and the output arithmetic (6)."""
+    nbytes = frames * (2 * n_bins + 1) * 4 + (n_bins * 4 if softmax else 0)
+    return nbytes, frames * n_bins * (2 * spw + 1) + 6 * peaks
 
 
 def full_width_shapes():
@@ -392,6 +645,127 @@ def phase_timing(dev, shapes) -> dict:
     return results
 
 
+SERVING_SHAPES = (
+    # label, n_bins, d_max, spw, N, T, track 0's length, seed (bench.py:209-287)
+    ("tonet 361 serving", 360, 14, 5, 128, 8192, 8192, 2),
+    ("jdc 722 serving", 721, 40, 16, 64, 4096, 1024, 3),
+)
+
+
+def phase_serving(dev) -> dict:
+    """bench.py's serving chains on logits normal - 2 (threshold 0): K5 and
+    K6 (scaled) alone, K5 -> K1 -> argmax -> K2, K9 -> K2, and the default
+    path (the PyTorch observation model, the log, K1/K2). Checks that both
+    chains decode the same states and that track 0 equals the oracle on
+    K5's log observations."""
+    T_PLAIN = 32
+    results = {}
+    for label, n_bins, d_max, spw, N, T, len0, seed in SERVING_SHAPES:
+        A, pi = shaped_matrix(n_bins, d_max, 0 if n_bins == 360 else 1)
+        S = n_bins + 1
+        bs = VB.extract_banded_structure(A)
+        check(bs is not None and bs.d_max == d_max, f"{label}: banded structure at d_max {d_max}")
+        log_B, log_pi = prepare_log_params(A, pi)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        logits = torch.randn((N, T, n_bins), generator=g, device=dev).sub_(2.0)
+        lengths = np.full(N, T, np.int32)
+        lengths[0] = len0
+        frames = int(lengths.sum())
+        pri = np.random.default_rng(seed).random(S).astype(np.float32) + 0.1
+        shaun = obs_cfg("shaun", spw, 0.0, None)
+        scaled = obs_cfg("softmax-scaled", spw, 0.0, pri / pri.sum())
+        iters = 5
+
+        def argmax(t1):
+            return torch.argmax(t1, dim=1).to(torch.int32)
+
+        def chain_k5():
+            t1, rows = VB.banded_forward(bs, log_pi, OF.log_obs(logits, shaun), lengths)
+            return VB.banded_backtrace(bs, rows, argmax(t1), lengths)
+
+        def chain_k9():
+            t1, rows = VB.banded_forward_obs(bs, log_pi, logits, lengths, shaun)
+            return VB.banded_backtrace(bs, rows, argmax(t1), lengths)
+
+        def default_obs():
+            probs = shaun_observation_probs(logits.view(-1, n_bins), 0.0, spw)
+            return log_obs_fn(probs).view(N, T, S)
+
+        def chain_default():
+            t1, rows = VB.banded_forward(bs, log_pi, default_obs(), lengths)
+            return VB.banded_backtrace(bs, rows, argmax(t1), lengths)
+
+        out = {}
+        ms_k5 = cuda_ms(lambda: out.update(o=OF.log_obs(logits, shaun)), iters)
+        log_obs = out.pop("o")
+        ms_k6 = cuda_ms(lambda: OF.log_obs(logits, scaled), iters)
+        ms_k1 = cuda_ms(lambda: out.update(f=VB.banded_forward(bs, log_pi, log_obs, lengths)), iters)
+        t1, rows = out.pop("f")
+        last = argmax(t1)
+        ms_k2 = cuda_ms(lambda: out.update(b=VB.banded_backtrace(bs, rows, last, lengths)), iters)
+        states_k5 = out.pop("b").cpu().numpy()
+        del rows
+        ms_k9 = cuda_ms(lambda: out.update(f=VB.banded_forward_obs(bs, log_pi, logits, lengths, shaun)), iters)
+        t1_9, rows_9 = out.pop("f")
+        states_k9 = VB.banded_backtrace(bs, rows_9, argmax(t1_9), lengths).cpu().numpy()
+        k9_exact = bool(torch.equal(t1_9, t1))
+        del rows_9, t1_9
+        torch.cuda.empty_cache()
+        same = all(np.array_equal(states_k9[n, :L], states_k5[n, :L]) for n, L in enumerate(lengths))
+        oracle_ok = bool(np.array_equal(states_k5[0, :len0], viterbi_oracle_log(
+            log_B, log_pi, log_obs[0, :len0].cpu().numpy())))
+        check(k9_exact and same, f"{label}: K9 -> K2 equals K5 -> K1 -> K2")
+        check(oracle_ok, f"{label}: track 0 equals the oracle on K5's log observations")
+        peaks_mask = OF._peaks(logits, spw)
+        peaks_all = int(peaks_mask.sum())
+        in_len = torch.as_tensor(np.arange(T)[None, :] < lengths[:, None], device=dev)
+        peaks_len = int((peaks_mask & in_len[..., None]).sum())
+        del peaks_mask, log_obs
+        torch.cuda.empty_cache()
+
+        ms_chain_k5 = cuda_ms(chain_k5, iters)
+        ms_chain_k9 = cuda_ms(chain_k9, iters)
+        ms_default_obs = cuda_ms(default_obs, iters)
+        ms_chain_default = cuda_ms(chain_default, iters)
+        torch.cuda.empty_cache()
+        ms_k5_plain = cuda_ms(lambda: OF.log_obs_plain(logits, shaun), 1)
+        ms_k6_plain = cuda_ms(lambda: OF.log_obs_plain(logits, scaled), 1)
+        short = logits[:, :T_PLAIN].contiguous()
+        lens_s = np.full(N, T_PLAIN, np.int32)
+        ms_k9_plain = cuda_ms(lambda: VB.banded_forward_obs_plain(
+            bs, log_pi, short, lens_s, shaun), 1) * T / T_PLAIN
+
+        b5 = bound(*obs_work(n_bins, spw, N * T, peaks_all, False))
+        b6 = bound(*obs_work(n_bins, spw, N * T, peaks_all, True))
+        # K9 reads the logits of each track's frames and writes t1m1 (the
+        # bytes of K5 over those frames), and does K1's and K5's operations
+        _, k1_ops = work("K1", S, lengths, bs)
+        o_bytes, o_ops = obs_work(n_bins, spw, frames, peaks_len, False)
+        b9 = bound(o_bytes, k1_ops + o_ops)
+        fps = lambda ms, n=frames: n / (ms / 1e3)  # noqa: E731
+        rec = {"phase": "serving", "shape": label, "N": N, "T": T, "S": S, "spw": spw,
+               "d_max": d_max, "frames": frames,
+               "K5_ms": ms_k5, "K5_frames_per_s": fps(ms_k5, N * T),
+               "K5_plain_ms": ms_k5_plain, "K5_bound_ms": b5[0], "K5_bound_by": b5[1],
+               "K6_ms": ms_k6, "K6_frames_per_s": fps(ms_k6, N * T),
+               "K6_plain_ms": ms_k6_plain, "K6_bound_ms": b6[0], "K6_bound_by": b6[1],
+               "K9_ms": ms_k9, "K9_plain_ms": ms_k9_plain, "K9_bound_ms": b9[0],
+               "K9_bound_by": b9[1], "K9_plain_T": T_PLAIN,
+               "K1_on_K5_ms": ms_k1, "K2_ms_in_chain": ms_k2,
+               "chain_K5_K1_K2_ms": ms_chain_k5, "chain_K5_K1_K2_frames_per_s": fps(ms_chain_k5),
+               "chain_K9_K2_ms": ms_chain_k9, "chain_K9_K2_frames_per_s": fps(ms_chain_k9),
+               "default_obs_ms": ms_default_obs,
+               "default_path_ms": ms_chain_default,
+               "default_path_frames_per_s": fps(ms_chain_default),
+               "peaks": peaks_all, "track0_length": len0,
+               "track0_matches_oracle": oracle_ok, "k9_equals_k5_k1": k9_exact and same}
+        emit(rec)
+        results[label] = rec
+        del logits, short, out, t1, last
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -415,11 +789,19 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_seconds": build_s, "ptxas": ptxas})
 
     errs = {k: 0.0 for k in KERNEL_INFO}
+    errs["K9_vs_K5K6_K1"] = 0.0
     phase_equality(dev, errs)
-    launches = phase_main_path(dev, errs)
+    phase_obs_equality(dev, errs)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, ctx = phase_main_path(dev, errs, Path(tmp))
+        fused_launches = phase_fused_path(dev, errs, ctx)
+    # each kernel's count from the path it belongs to
+    launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     timing = phase_timing(dev, full_width_shapes())
+    timing.update(phase_serving(dev))
 
-    headline = {"K1": "tonet 361", "K2": "tonet 361", "K3": "imm 722", "K4": "imm 722"}
+    headline = {"K1": "tonet 361", "K2": "tonet 361", "K3": "imm 722", "K4": "imm 722",
+                "K5": "tonet 361 serving", "K6": "tonet 361 serving", "K9": "tonet 361 serving"}
     kernels = []
     for k, (name, source, replaces) in KERNEL_INFO.items():
         def entry(rec):
@@ -431,9 +813,12 @@ def main() -> int:
             "name": f"{k} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[k], "max_abs_err": errs[k],
             **entry(main_rec), "library_ms": None,
+            "launches_on_fused_path": fused_launches[k],
             "other_shapes": [entry(r) for lbl, r in timing.items()
                              if lbl != headline[k] and f"{k}_ms" in r],
         })
+        if k == "K9":
+            kernels[-1]["max_abs_err_vs_k5k6_k1"] = errs["K9_vs_K5K6_K1"]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions on the card:
-exact equality of t1_last, of t1m1 up to each track's length, and of the
-decoded states, with ragged lengths and N not a multiple of 8.
+"""The CUDA kernels against their plain PyTorch versions on the card: K1-K4
+with exact equality of t1_last, of t1m1 up to each track's length, and of
+the decoded states, with ragged lengths and N not a multiple of 8; K5/K6
+under the observation contract (hmm/obs_fused.py::obs_contract); K9
+bit-equal to K5/K6 -> K1.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so that it also runs where jax is absent:
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from viterbi_spl_tpu_torch.hmm import obs_fused as OF
 from viterbi_spl_tpu_torch.hmm import params as TP
 from viterbi_spl_tpu_torch.hmm import viterbi_banded as TB
 from viterbi_spl_tpu_torch.hmm import viterbi_dense as TD
@@ -128,3 +131,89 @@ def test_decode_api_runs_the_kernels(cuda, rng):
             np.testing.assert_array_equal(g, viterbi_oracle_log(log_B, log_pi, log_obs))
         for k in kernels:
             assert TD.KERNEL_WRAPPERS[k].launches == before[k] + 1, k
+
+
+METHODS = ("shaun", "softmax-scaled", "softmax-unscaled")
+
+
+def _shaped(rng, n_bins, d_max):
+    walk = [np.clip(n_bins // 2 + np.cumsum(rng.integers(-3, 4, 4000)), 0, n_bins - 1)]
+    stats = TP.count_statistics(walk, n_bins)
+    A = TP.shape_transition_matrix(
+        stats.transition_counts, np.array([[0.98, 0.02], [0.02, 0.98]]), n_bins, d_max, 2
+    )
+    return A, TP.shape_init_probs(stats.p_steady, p_th=1e-4)
+
+
+def _obs_cfg(rng, method, n_bins, spw):
+    pri = rng.random(n_bins + 1).astype(np.float32) + 0.1
+    return dict(method=method, spw=spw, threshold_logit=0.3, init_probs=pri / pri.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins,spw", [(360, 5), (721, 16), (721, 20)])
+@pytest.mark.parametrize("method", METHODS)
+def test_cuda_k5_k6_match_plain(cuda, rng, n_bins, spw, method):
+    """K5/K6 against their plain versions on the card: lanes at log TINY
+    bit-equal, rtol 2e-4 (atol 1e-6) above -80, at most log 2 in the floor
+    region, the unvoiced lane within rtol 1e-6."""
+    lg = torch.from_numpy(OF.contract_logits(rng, len(LENGTHS), 64, n_bins)).to(cuda)
+    obs = _obs_cfg(rng, method, n_bins, spw)
+    wrapper = OF.shaun_log_obs if method == "shaun" else OF.softmax_log_obs
+    launches = wrapper.launches
+    got = OF.log_obs(lg, obs)
+    assert wrapper.launches == launches + 1
+    res = OF.obs_contract(got.cpu().numpy(), OF.log_obs_plain(lg, obs).cpu().numpy())
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins,d_max,spw", [(360, 14, 5), (721, 40, 16)])
+@pytest.mark.parametrize("method", METHODS)
+def test_cuda_k9_bit_equal_k5_k6_then_k1(cuda, rng, n_bins, d_max, spw, method):
+    """K9 (the observations inside the forward) bit-equal to K5/K6 -> K1:
+    t1_last, and t1m1 up to each track's length, with ragged lengths."""
+    A, pi = _shaped(rng, n_bins, d_max)
+    _, log_pi = prepare_log_params(A, pi)
+    bs = TB.extract_banded_structure(A)
+    T = 96
+    lg = torch.from_numpy(OF.contract_logits(rng, len(LENGTHS), T, n_bins)).to(cuda)
+    obs = _obs_cfg(rng, method, n_bins, spw)
+    launches = TB.banded_forward_obs.launches
+    t1_9, t1m1_9 = TB.banded_forward_obs(bs, log_pi, lg, LENGTHS, obs)
+    assert TB.banded_forward_obs.launches == launches + 1
+    t1_1, t1m1_1 = TB.banded_forward(bs, log_pi, OF.log_obs(lg, obs), LENGTHS)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(t1_9.cpu().numpy(), t1_1.cpu().numpy())
+    for n, L in enumerate(LENGTHS):
+        np.testing.assert_array_equal(t1m1_9[n, :L].cpu().numpy(), t1m1_1[n, :L].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_fused_decode_api_runs_the_kernels(cuda, rng):
+    """viterbi_decode_batch_fused_obs on the card launches K9 and K2 for a
+    shaped matrix, K5 then K3/K4 for a dense one (K6 for softmax); paths
+    equal the oracle on the card's own fused log observations."""
+    n_bins = 120
+    shaped, pi = _shaped(rng, n_bins, 8)
+    dense = TP.imm_transition_matrix(4, n_bins)
+    lens = np.array([70, 1, 33], np.int32)
+    lg = rng.normal(-2, 1, (3, 70, n_bins)).astype(np.float32)
+    lg[:, np.arange(70), 60 + np.arange(70) // 7] += 6.0
+    lg = torch.from_numpy(lg).to(cuda)
+    for A, method, kernels in ((shaped, "shaun", ("K9", "K2")),
+                               (dense, "shaun", ("K5", "K3", "K4")),
+                               (dense, "softmax-scaled", ("K6", "K3", "K4"))):
+        obs = _obs_cfg(rng, method, n_bins, 5)
+        before = {k: TD.KERNEL_WRAPPERS[k].launches for k in TD.KERNEL_WRAPPERS}
+        got = TD.viterbi_decode_batch_fused_obs(
+            transition_matrix=A, prob_init=pi, logits=lg, lengths=lens, obs=obs
+        ).cpu().numpy()
+        after = {k: TD.KERNEL_WRAPPERS[k].launches for k in TD.KERNEL_WRAPPERS}
+        assert {k for k in after if after[k] != before[k]} == set(kernels)
+        log_B, log_pi = prepare_log_params(A, pi)
+        log_obs = OF.log_obs(lg, obs).cpu().numpy()
+        for n, L in enumerate(lens):
+            np.testing.assert_array_equal(
+                got[n, :L], viterbi_oracle_log(log_B, log_pi, log_obs[n, :L])
+            )

@@ -17,7 +17,8 @@ HMM parameters are read from the reference-format .dat artifacts
         --format txt input_dir/*.npy
 
 It runs on CUDA; `--device cpu` runs the same dispatch with the kernels'
-plain PyTorch versions.
+plain PyTorch versions. `--fused-obs` computes the observation model with
+the fused kernels K5/K6 on the whole batch.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ def build_setup(args) -> DecoderSetup:
         method=args.method,
         threshold_is_logit=spec.threshold_is_logit,
         interp_est_notes=spec.interp_est_notes,
+        fused_obs=getattr(args, "fused_obs", False),
         device=getattr(args, "device", None),
     )
 
@@ -166,6 +168,11 @@ def main(argv=None):
     ap.add_argument("--format", default="txt", choices=["txt", "npz"])
     ap.add_argument("--transposed", action="store_true",
                     help="inputs are [n_bins, T] instead of [T, n_bins]")
+    ap.add_argument("--fused-obs", action="store_true",
+                    help="serving fast path: the fused observation kernel "
+                         "(K5/K6) on the whole batch, feeding the decoder "
+                         "directly (all methods; see hmm/obs_fused.py for "
+                         "the tolerance contract)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")

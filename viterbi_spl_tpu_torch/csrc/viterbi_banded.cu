@@ -54,7 +54,21 @@
 // per source behind a branch serialises the loads;
 // scripts/gpu_backtrace_probe.py measures the alternatives.)
 
-#include "viterbi_common.cuh"
+//
+// K9 replaces the same TPU kernel with obs_mode=("shaun"|"softmax", spw)
+// (viterbi_banded.py:247, :266-287): K1 whose observation ring is filled
+// by the block's own warps, which compute the ring's frames from the raw
+// logits with obs_common.cuh's per-frame functions instead of copying
+// log_obs. It is K1's kernel instantiated with kObs set: the DP code is
+// the same code, and the observations are the bits K5/K6 would write, so
+// K9 equals K5/K6 -> K1 bit for bit. It saves K5/K6's write and K1's read
+// of the [N, T, S] log observations. The obs work is kept off most frames:
+// every G = min(warps, VSPL_RING / 2) frames, warps 0..G-1 each compute
+// one frame of the group G to 2G - 1 frames ahead (from logits staged by
+// cp.async G frames before), so one frame's obs latency is spread over G
+// DP frames.
+
+#include "obs_common.cuh"
 
 // Shared memory a block may use before the profiles move to L1.
 #define VSPL_BANDED_SMEM_BUDGET (200 * 1024)
@@ -70,11 +84,22 @@ extern "C" const char* vspl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// K9's group: the warps that compute observations, every that many frames.
+__host__ __device__ inline int vspl_obs_group(int threads) {
+  return min(threads / 32, VSPL_RING / 2);
+}
+
+// K9's block: at most 768 threads (S <= 768), so that the obs code has
+// registers to spare.
+#define VSPL_K9_THREADS 768
+
 // kRegBand (2 d_max + 1 <= VSPL_BAND_REGS): each thread keeps its own band
 // column in registers and reads one carry value per candidate; otherwise
 // it reads the class index, the profile and the carry value per candidate.
-template <bool kRegBand>
-__global__ void __launch_bounds__(1024) banded_forward_kernel(
+// kObs: 0 reads log_obs (K1); VSPL_OBS_SHAUN / VSPL_OBS_SOFTMAX computes the
+// observations from oa.logits (K9; log_obs unused).
+template <bool kRegBand, int kObs>
+__global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_kernel(
     const float* __restrict__ log_obs,   // [N, T, S]
     const float* __restrict__ bv,        // [n_classes, S] source profiles
     const int* __restrict__ cls,         // [2 d_max + 1] class of offset d
@@ -83,18 +108,23 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
     float* __restrict__ t1m1,            // [N, T, S]: row t = T1[t-1], row 0 = 0
     float* __restrict__ t1_last,         // [N, S]
     int T, int S, int d_max, int n_classes, int bv_in_smem, float log_tiny,
-    float log_c_uv, float log_c_vu, float log_c_uu) {
+    float log_c_uv, float log_c_vu, float log_c_uu, VsplObsArgs oa) {
   extern __shared__ float smem[];
   const int W = 2 * d_max + 1;
   const int n = S - 1;  // the unvoiced state
   // two carry rows, each with d_max zero slots before it and
   // VSPL_BAND_REGS after it, so every unrolled in-band read stays in its row
   const int stride = vspl_carry_stride(S, d_max);
+  // K9: the reflect map and each obs warp's staged logits
+  const int n_stage = kObs ? oa.n_bins + 2 * oa.spw : 0;
+  const int G = kObs ? vspl_obs_group(blockDim.x) : 0;
   float* buf = smem;                                  // [2][stride]
   float* wmax = buf + 2 * stride;                     // [2][32] warp voiced maxima
   float* obs_ring = wmax + 2 * VSPL_MAX_WARPS;        // [VSPL_RING][S] observations
   int* cls_s = reinterpret_cast<int*>(obs_ring + VSPL_RING * S);  // [W]
-  float* bv_s = reinterpret_cast<float*>(cls_s + W);               // [C][S]
+  int* idx_s = cls_s + W;                                          // K9: [n_stage]
+  float* stage_s = reinterpret_cast<float*>(idx_s + n_stage);      // K9: [G][n_stage]
+  float* bv_s = stage_s + G * n_stage;                             // [C][S]
   const float* prof = bv_in_smem ? bv_s : bv;
 
   const int tid = threadIdx.x;
@@ -102,6 +132,8 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int track = blockIdx.x;
+  if constexpr (kObs != 0)
+    for (int i = tid; i < n_stage; i += blockDim.x) idx_s[i] = oa.idx[i];
   for (int i = tid; i < 2 * stride; i += blockDim.x) buf[i] = 0.0f;
   for (int i = tid; i < W; i += blockDim.x) cls_s[i] = cls[i];
   if (bv_in_smem)
@@ -125,10 +157,32 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
   const float* obs = log_obs + base;
   float* out = t1m1 + base;
   const bool real = tid < S;
+  // K9: this track's logits, and this warp's staging row when it is an obs warp
+  const float* logits = kObs ? oa.logits + static_cast<size_t>(track) * T * oa.n_bins : nullptr;
+  float* stage = stage_s + warp * n_stage;
+
+  if constexpr (kObs != 0) {
+    // frames 0 .. 2G-1 into the ring now; frame 2G + w's logits start to
+    // copy for the loop's first group
+    if (warp < G) {
+      for (int r = warp; r < min(2 * G, len); r += G) {
+        vspl_stage_logits(stage, logits + static_cast<size_t>(r) * oa.n_bins, idx_s, n_stage,
+                          lane);
+        __syncwarp();
+        vspl_obs_frame<kObs>(stage, obs_ring + (r % VSPL_RING) * S, oa, lane);
+        __syncwarp();
+      }
+      const int r = 2 * G + warp;
+      if (r < len)
+        vspl_stage_logits_async(stage, logits + static_cast<size_t>(r) * oa.n_bins, idx_s,
+                                n_stage, lane);
+    }
+    __syncthreads();
+  }
 
   float cur = -CUDART_INF_F;
   if (real) {
-    cur = log_pi[tid] + obs[tid];
+    cur = log_pi[tid] + (kObs ? obs_ring[tid] : obs[tid]);  // frame 0 is ring slot 0
     buf[d_max + tid] = cur;
     out[tid] = 0.0f;
   }
@@ -141,15 +195,21 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
   // each thread's observations stream through a VSPL_RING-frame ring in
   // shared memory, requested VSPL_RING frames ahead: a frame takes less
   // than a device-memory load
-  for (int r = 1; r <= VSPL_RING; ++r)
-    vspl_stage_one(obs_ring + (r % VSPL_RING) * S + tid,
-                   obs + static_cast<size_t>(min(r, len - 1)) * S + tid, real && r < len);
+  if constexpr (kObs == 0)
+    for (int r = 1; r <= VSPL_RING; ++r)
+      vspl_stage_one(obs_ring + (r % VSPL_RING) * S + tid,
+                     obs + static_cast<size_t>(min(r, len - 1)) * S + tid, real && r < len);
   int p = 0;
   for (int t = 1; t < len; ++t) {
-    vspl_wait_oldest_row();  // this thread's observation of frame t
     const int slot = (t % VSPL_RING) * S + tid;
-    const float obs_t = real ? obs_ring[slot] : 0.0f;
+    float obs_t;
+    if constexpr (kObs == 0) {
+      vspl_wait_oldest_row();  // this thread's observation of frame t
+      obs_t = real ? obs_ring[slot] : 0.0f;
+    }
     __syncthreads();
+    // K9: frame t was written by another warp at least one barrier ago
+    if constexpr (kObs != 0) obs_t = real ? obs_ring[slot] : 0.0f;
     const float* prev = buf + p * stride + d_max;
     // the voiced maximum of the previous row, from the warps' maxima
     const float max_voiced =
@@ -185,10 +245,26 @@ __global__ void __launch_bounds__(1024) banded_forward_kernel(
     wv = vspl_warp_max(tid < n ? nv : -CUDART_INF_F);
     if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = wv;
     p ^= 1;
-    // refill the slot just used (its value is in nv) with frame t + VSPL_RING
-    const int r = t + VSPL_RING;
-    vspl_stage_one(obs_ring + slot, obs + static_cast<size_t>(min(r, len - 1)) * S + tid,
-                   real && r < len);
+    if constexpr (kObs == 0) {
+      // refill the slot just used (its value is in nv) with frame t + VSPL_RING
+      const int r = t + VSPL_RING;
+      vspl_stage_one(obs_ring + slot, obs + static_cast<size_t>(min(r, len - 1)) * S + tid,
+                     real && r < len);
+    } else if (t % G == 0 && warp < G) {
+      // frame r = t + G + warp into its slot, last read at frame r - VSPL_RING
+      // < t (before this frame's barrier) and next read at frame r > t
+      // (after the next barrier); then request frame r + G's logits
+      const int r = t + G + warp;
+      if (r < len) {
+        vspl_wait_all_rows();
+        __syncwarp();
+        vspl_obs_frame<kObs>(stage, obs_ring + (r % VSPL_RING) * S, oa, lane);
+        __syncwarp();
+        if (r + G < len)
+          vspl_stage_logits_async(stage, logits + static_cast<size_t>(r + G) * oa.n_bins,
+                                  idx_s, n_stage, lane);
+      }
+    }
   }
   vspl_wait_all_rows();
   if (real) t1_last[static_cast<size_t>(track) * S + tid] = cur;
@@ -285,24 +361,30 @@ __global__ void __launch_bounds__(32) banded_backtrace_kernel(
   vspl_wait_all_rows();
 }
 
-extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
-                                   const int* cls, const float* log_pi,
-                                   const int* lengths, float* t1m1,
-                                   float* t1_last, int N, int T, int S,
-                                   int d_max, int n_classes, float log_tiny,
-                                   float log_c_uv, float log_c_vu,
-                                   float log_c_uu, void* stream) {
+// Launches K1 (kObs = 0) or K9 with one block of round_up(S, 32) threads
+// per track.
+template <int kObs>
+static int launch_banded_forward(const float* log_obs, const VsplObsArgs& oa,
+                                 const float* bv, const int* cls, const float* log_pi,
+                                 const int* lengths, float* t1m1, float* t1_last, int N,
+                                 int T, int S, int d_max, int n_classes, float log_tiny,
+                                 float log_c_uv, float log_c_vu, float log_c_uu,
+                                 void* stream) {
   const int threads = ((S + 31) / 32) * 32;
-  if (threads > 1024 || N <= 0 || T <= 0) return cudaErrorInvalidValue;
+  if (threads > (kObs ? VSPL_K9_THREADS : 1024) || N <= 0 || T <= 0)
+    return cudaErrorInvalidValue;
   const int W = 2 * d_max + 1;
+  const int n_stage = kObs ? oa.n_bins + 2 * oa.spw : 0;
   const size_t base_smem =
       (2 * vspl_carry_stride(S, d_max) + 2 * VSPL_MAX_WARPS + VSPL_RING * S) * sizeof(float) +
-      W * sizeof(int);
+      W * sizeof(int) +
+      static_cast<size_t>(n_stage) * (1 + (kObs ? vspl_obs_group(threads) : 0)) *
+          sizeof(float);
   const size_t bv_bytes = static_cast<size_t>(n_classes) * S * sizeof(float);
   const int bv_in_smem = base_smem + bv_bytes <= VSPL_BANDED_SMEM_BUDGET;
   const size_t smem = base_smem + (bv_in_smem ? bv_bytes : 0);
-  auto kernel = W <= VSPL_BAND_REGS ? banded_forward_kernel<true>
-                                    : banded_forward_kernel<false>;
+  auto kernel = W <= VSPL_BAND_REGS ? banded_forward_kernel<true, kObs>
+                                    : banded_forward_kernel<false, kObs>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -311,8 +393,48 @@ extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
   }
   kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       log_obs, bv, cls, log_pi, lengths, t1m1, t1_last, T, S, d_max, n_classes,
-      bv_in_smem, log_tiny, log_c_uv, log_c_vu, log_c_uu);
+      bv_in_smem, log_tiny, log_c_uv, log_c_vu, log_c_uu, oa);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
+                                   const int* cls, const float* log_pi,
+                                   const int* lengths, float* t1m1,
+                                   float* t1_last, int N, int T, int S,
+                                   int d_max, int n_classes, float log_tiny,
+                                   float log_c_uv, float log_c_vu,
+                                   float log_c_uu, void* stream) {
+  const VsplObsArgs none{};
+  return launch_banded_forward<0>(log_obs, none, bv, cls, log_pi, lengths, t1m1, t1_last, N,
+                                  T, S, d_max, n_classes, log_tiny, log_c_uv, log_c_vu,
+                                  log_c_uu, stream);
+}
+
+// K9: model is VSPL_OBS_SHAUN (params: threshold, offset, scale) or
+// VSPL_OBS_SOFTMAX (params: vth, prior_uv, -; log_prior [n_bins]); logits
+// [N, T, S - 1], idx the [S - 1 + 2 spw] reflect map.
+extern "C" int vspl_banded_forward_obs(const float* logits, const int* idx,
+                                       const float* log_prior, int model, int spw,
+                                       float p0, float p1, float p2, const float* bv,
+                                       const int* cls, const float* log_pi,
+                                       const int* lengths, float* t1m1, float* t1_last,
+                                       int N, int T, int S, int d_max, int n_classes,
+                                       float log_tiny, float log_c_uv, float log_c_vu,
+                                       float log_c_uu, void* stream) {
+  const int n_bins = S - 1;
+  if (n_bins < 2 || n_bins > VSPL_OBS_MAX_BINS || spw < 1 || spw >= n_bins)
+    return cudaErrorInvalidValue;
+  const VsplObsArgs oa{logits, idx, log_prior, p0, p1, p2, log_tiny, n_bins, spw};
+  if (model == VSPL_OBS_SHAUN)
+    return launch_banded_forward<VSPL_OBS_SHAUN>(nullptr, oa, bv, cls, log_pi, lengths, t1m1,
+                                                 t1_last, N, T, S, d_max, n_classes, log_tiny,
+                                                 log_c_uv, log_c_vu, log_c_uu, stream);
+  if (model == VSPL_OBS_SOFTMAX)
+    return launch_banded_forward<VSPL_OBS_SOFTMAX>(nullptr, oa, bv, cls, log_pi, lengths,
+                                                   t1m1, t1_last, N, T, S, d_max, n_classes,
+                                                   log_tiny, log_c_uv, log_c_vu, log_c_uu,
+                                                   stream);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int vspl_banded_backtrace(const float* t1m1, const float* bv,

@@ -13,7 +13,9 @@ evaluation on signed frequencies (:3160-3198).
 The observation model and the metrics run in PyTorch on the setup's device
 (CUDA unless the caller asks for the CPU). Decoding always goes through the
 batched decode API (hmm/viterbi_dense.py): the CUDA kernels K1-K4 on the
-GPU, their plain versions of the same dispatch on the CPU.
+GPU, their plain versions of the same dispatch on the CPU. With
+`fused_obs`, the observation model is the fused kernel K5/K6
+(hmm/obs_fused.py) on the whole batch instead.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..hmm import obs_fused
 from ..hmm.obs import shaun_observation_probs, softmax_observation_probs
 from ..hmm.viterbi import prepare_log_params
-from ..hmm.viterbi_dense import viterbi_decode_batch
+from ..hmm.viterbi_dense import viterbi_decode_batch, viterbi_decode_batch_logobs
 from ..metrics.mel_eval import est_notes_with_voicing_to_hz, evaluate_melody
 from ..metrics.melody import (
     MelodyMetrics,
@@ -60,6 +63,12 @@ class DecoderSetup:
     # jdc maps decoded bins to notes directly, without the +/-1-bin
     # probability interpolation (jdc/viterbi_softmax.py:2443-2470)
     interp_est_notes: bool = True
+    # serving fast path: the fused observation kernel (K5/K6,
+    # hmm/obs_fused.py) on the whole batch, feeding the decoder directly.
+    # Equal to the default path up to the softmax denominators' summation
+    # order and ulp-level transcendentals (the kernels' tolerance contract);
+    # opt-in.
+    fused_obs: bool = False
     # where the observation model, the decode and the metrics run: CUDA
     # unless "cpu" is asked for (raises when CUDA is absent)
     device: object = None
@@ -74,7 +83,11 @@ class DecoderSetup:
     @classmethod
     def from_numpy(cls, fields: dict, device=None) -> "DecoderSetup":
         """A setup from the numpy/scalar fields of the JAX package's
-        DecoderSetup (dataclasses.asdict minus fused_obs and mesh)."""
+        DecoderSetup (dataclasses.asdict), fused_obs included. Only `mesh`
+        is dropped: the port has no sharded decode yet, so a mesh raises."""
+        fields = dict(fields)
+        if fields.pop("mesh", None) is not None:
+            raise ValueError("the port has no sharded decode: mesh must be None")
         return cls(**fields, device=device)
 
     @property
@@ -108,6 +121,8 @@ class DecoderSetup:
         (banded kernels when the transition structure allows, dense
         otherwise). Paths are bit-identical to the NumPy oracle given the
         same log observations."""
+        if self.fused_obs:
+            return self._decode_batch_fused(logits_list)
         obs_list = [self.observation_probs(lg) for lg in logits_list]
         states_list = viterbi_decode_batch(
             transition_matrix=self.transition_matrix,
@@ -120,6 +135,34 @@ class DecoderSetup:
             voiced = states < self.n_bins
             bins = np.minimum(states, self.n_bins - 1)
             out.append((voiced, bins))
+        return out
+
+    def obs_config(self) -> dict:
+        """The observation model as the fused kernels' obs dict
+        (hmm/obs_fused.py::obs_params)."""
+        return dict(method=self.method, spw=self.spw, threshold_logit=self.threshold_logit,
+                    p=self.obs_p, scale=self.obs_scale, init_probs=self.init_probs)
+
+    def _decode_batch_fused(self, logits_list: Sequence) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Fused serving path: the batch staged on the host as one
+        zero-filled [N, T_max, n_bins] array and copied to the device once,
+        the fused observation kernel (K5/K6), then the batched decode with
+        the lengths. (Frames past a track's length are zeros, which the
+        decode never reads.) As in the JAX package, this path does not take
+        the in-forward variant K9 (viterbi_decode_batch_fused_obs)."""
+        lengths = [np.asarray(lg).shape[0] for lg in logits_list]
+        staged = np.zeros((len(lengths), max(lengths), self.n_bins), np.float32)
+        for i, lg in enumerate(logits_list):
+            staged[i, : lengths[i]] = np.asarray(lg, np.float32)
+        logits = torch.from_numpy(staged).to(self.device)
+        states = viterbi_decode_batch_logobs(
+            transition_matrix=self.transition_matrix, prob_init=self.init_probs,
+            log_obs=obs_fused.log_obs(logits, self.obs_config()), lengths=lengths,
+        ).cpu().numpy()
+        out = []
+        for i, L in enumerate(lengths):
+            st = states[i, :L].astype(np.int64)
+            out.append((st < self.n_bins, np.minimum(st, self.n_bins - 1)))
         return out
 
 

@@ -1,6 +1,7 @@
 """Exact banded fast path for the batched Viterbi decode (counterpart of
 viterbi_spl_tpu/hmm/viterbi_banded.py): the host-side structure extraction
-in NumPy, and kernels K1 (forward) and K2 (backtrace) — CUDA C++ in
+in NumPy, and kernels K1 (forward), K2 (backtrace) and K9 (the forward with
+the observation model computed inside it, from raw logits) — CUDA C++ in
 csrc/viterbi_banded.cu, each with its plain PyTorch version here.
 
 Every shaped melody transition matrix (SURVEY.md §2.4) has the structure
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
+from . import obs_fused
 from .viterbi import NEG_PAD, TINY, first_argmax
 
 LOG_TINY = float(np.log(TINY))
@@ -297,6 +299,8 @@ _SIGNATURES = {
                             _F, _F, _F, _F, _P],
     "vspl_banded_backtrace": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _F, _F, _F, _P],
+    "vspl_banded_forward_obs": [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P,
+                                _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
 }
 
 
@@ -354,5 +358,48 @@ def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengt
     return states
 
 
+def banded_forward_obs_plain(bs: BandedStructure, log_pi, logits, lengths, obs: dict):
+    """K9's plain version: the plain observation model the obs dict names
+    (hmm/obs_fused.py), then K1's plain version."""
+    log_obs = obs_fused.log_obs_plain(logits, obs)
+    return banded_forward_plain(bs, torch.as_tensor(log_pi).to(logits.device), log_obs, lengths)
+
+
+def banded_forward_obs(bs: BandedStructure, log_pi, logits: torch.Tensor, lengths, obs: dict):
+    """K9: the banded batched forward DP with the observation model computed
+    inside it (counterpart of viterbi_forward_pallas_banded_batch_obs):
+    raw logits [N, T, n_bins] f32 and the JAX package's obs dict (see
+    hmm/obs_fused.py::obs_params). Returns (t1_last, t1m1) as K1 does fed
+    with K5/K6's output — on the GPU bit for bit."""
+    N, T, n_bins = logits.shape
+    if n_bins + 1 != bs.S:
+        raise ValueError(f"logits have {n_bins} bins, the structure {bs.S - 1}")
+    lens = cuda_lib.host_lengths(lengths, N, T)
+    if logits.device.type == "cpu":
+        return banded_forward_obs_plain(bs, torch.as_tensor(log_pi), logits, lens, obs)
+    dev = cuda_lib.cuda_operand(logits, "logits").device
+    model, spw, params, log_prior = obs_fused.obs_params(obs, n_bins)
+    if bs.S > 768:
+        raise ValueError(f"K9 takes at most 768 states, got {bs.S}")
+    idx = torch.as_tensor(obs_fused.reflect_index(n_bins, spw), device=dev)
+    prior = torch.as_tensor(log_prior, device=dev)
+    bv, cls = _profiles(bs, dev)
+    log_pi = torch.as_tensor(log_pi, dtype=torch.float32).to(dev).contiguous()
+    lens_d = torch.as_tensor(lens, device=dev)
+    t1m1 = torch.empty((N, T, bs.S), dtype=torch.float32, device=dev)
+    t1_last = torch.empty((N, bs.S), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("viterbi_banded", _SIGNATURES)
+    P = cuda_lib.ptr
+    rc = lib.vspl_banded_forward_obs(
+        P(logits), P(idx), P(prior), model, spw, *map(float, params), P(bv), P(cls),
+        P(log_pi), P(lens_d), P(t1m1), P(t1_last), N, T, bs.S, bs.d_max, bv.shape[0],
+        LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu, cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(lib, rc, "banded forward with observations (K9)")
+    banded_forward_obs.launches += 1
+    return t1_last, t1m1
+
+
 banded_forward.launches = 0
 banded_backtrace.launches = 0
+banded_forward_obs.launches = 0

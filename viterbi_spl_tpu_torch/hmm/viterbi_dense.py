@@ -15,6 +15,10 @@ transition matrix has the shaped melody structure, else the dense forward
 structure carries source-profile classes, else the dense backtrace (K4).
 PyTorch runs eagerly, so there is no shape bucketing and no padding of N
 or S.
+
+`viterbi_decode_batch_fused_obs` is the serving path from raw logits: the
+forward with the observation model inside it (K9) when the structure is
+banded, else the observation kernel (K5/K6) and the dense decode.
 """
 
 from __future__ import annotations
@@ -26,8 +30,14 @@ import torch
 
 from .. import cuda_lib
 from ..utils import resolve_device
+from . import obs_fused
 from .viterbi import first_argmax, log_obs_fn, prepare_log_params
-from .viterbi_banded import banded_backtrace, banded_forward, extract_banded_structure
+from .viterbi_banded import (
+    banded_backtrace,
+    banded_forward,
+    banded_forward_obs,
+    extract_banded_structure,
+)
 
 
 def dense_forward_plain(log_B, log_pi, log_obs, lengths):
@@ -137,6 +147,9 @@ KERNEL_WRAPPERS = {
     "K2": banded_backtrace,
     "K3": dense_forward,
     "K4": dense_backtrace,
+    "K5": obs_fused.shaun_log_obs,
+    "K6": obs_fused.softmax_log_obs,
+    "K9": banded_forward_obs,
 }
 
 
@@ -180,3 +193,31 @@ def viterbi_decode_batch(
         log_obs=log_obs_fn(obs), lengths=lengths,
     ).cpu().numpy()
     return [states[i, :L].astype(np.int64) for i, L in enumerate(lengths)]
+
+
+def viterbi_decode_batch_fused_obs(
+    *, transition_matrix, prob_init, logits: torch.Tensor, lengths, obs: dict
+) -> torch.Tensor:
+    """Decode a [N, T, n_bins] batch of RAW logits with per-track lengths
+    (counterpart of viterbi_decode_batch_pallas_fused_obs, without `mesh`).
+    obs: the JAX package's obs dict (hmm/obs_fused.py::obs_params). With a
+    banded structure: K9, the first-max argmax, then K2 (K4 when the
+    structure has no classes); without: K5/K6, then
+    viterbi_decode_batch_logobs (K3/K4). Returns states [N, T] int32 on
+    the logits' device; entries at or beyond each track's length are
+    unspecified."""
+    S = np.asarray(transition_matrix).shape[0]
+    if logits.shape[-1] + 1 != S:
+        raise ValueError(f"logits have {logits.shape[-1]} bins, the matrix {S} states")
+    bstruct = extract_banded_structure(np.asarray(transition_matrix))
+    if bstruct is None:
+        return viterbi_decode_batch_logobs(
+            transition_matrix=transition_matrix, prob_init=prob_init,
+            log_obs=obs_fused.log_obs(logits, obs), lengths=lengths,
+        )
+    log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
+    t1_last, t1m1 = banded_forward_obs(bstruct, log_pi, logits, lengths, obs)
+    last_states = torch.argmax(t1_last[:, :S], dim=1).to(torch.int32)
+    if bstruct.classes:
+        return banded_backtrace(bstruct, t1m1, last_states, lengths)
+    return dense_backtrace(log_B, t1m1, last_states, lengths)
