@@ -16,7 +16,10 @@ Phases (one JSON line each):
      1e-6 above -80, at most log 2 in the floor region, the unvoiced lane
      within rtol 1e-6); K9 at tonet 361 and jdc 722 for all three methods,
      bit-equal to K5/K6 -> K1, within the observations' summed error of its
-     plain version, and K9 -> K2's track 0 against the oracle.
+     plain version, and K9 -> K2's track 0 against the oracle. K7/K8 over 8
+     ragged windows in one launch each, with reset rows 0, -1 and 64, at
+     361 states (bench.py's tonet matrix, taken dense) and 722 (imm's),
+     exactly; each window with reset row 0 against the oracle.
   3. the main path: tonet artifacts from synthetic note tracks, 8 logit
      files, the decode CLI on its default device for all three methods
      (exactly K1/K2 must launch), then a DecoderSetup with imm's analytic
@@ -38,6 +41,9 @@ Phases (one JSON line each):
      ms and frames/s of K5 alone, K6 (scaled) alone, K5 -> K1 -> argmax ->
      K2, K9 -> K2, and the default path (the PyTorch observation model, the
      log, then K1/K2); track 0 against the oracle on K5's log observations.
+  4c. the single-track kernels: K7 and K8 alone and the single-track decode
+     on the 32768-frame tonet track, the time-sharded decode's ms per halo
+     attempt against it, and the single-track decode at imm 722, T=4096.
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
      bounds it.
@@ -66,6 +72,14 @@ from viterbi_spl_tpu_torch.cli.hmm_artifacts import (
     build_hmm_artifacts,
     quantize_tracks_for_family,
 )
+from viterbi_spl_tpu_torch.dist import (
+    decode_tracks_sharded,
+    make_mesh,
+    viterbi_decode_time_sharded,
+    viterbi_sharded_time_blocks,
+)
+from viterbi_spl_tpu_torch.dist.certify import make_seam_stress_hmm
+from viterbi_spl_tpu_torch.dist.sharded_viterbi import halo_windows
 from viterbi_spl_tpu_torch.families import family_spec
 from viterbi_spl_tpu_torch.harness.evaluate import DecoderSetup
 from viterbi_spl_tpu_torch.hmm import obs_fused as OF
@@ -74,6 +88,7 @@ from viterbi_spl_tpu_torch.hmm import viterbi_banded as VB
 from viterbi_spl_tpu_torch.hmm import viterbi_dense as VD
 from viterbi_spl_tpu_torch.hmm.obs import shaun_observation_probs
 from viterbi_spl_tpu_torch.hmm.oracle import viterbi_oracle_log
+from viterbi_spl_tpu_torch.hmm.streaming import StreamingViterbiBatch
 from viterbi_spl_tpu_torch.hmm.viterbi import log_obs_fn, prepare_log_params
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 outside the
@@ -94,6 +109,10 @@ KERNEL_INFO = {
            "viterbi_spl_tpu/hmm/obs_pallas.py:320"),
     "K6": ("softmax_log_obs", "viterbi_spl_tpu_torch/csrc/obs.cu",
            "viterbi_spl_tpu/hmm/obs_pallas.py:239"),
+    "K7": ("window_forward", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
+           "viterbi_spl_tpu/hmm/viterbi_pallas.py:238"),
+    "K8": ("window_backtrace", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
+           "viterbi_spl_tpu/hmm/viterbi_pallas.py:303"),
     "K9": ("banded_forward_obs", "viterbi_spl_tpu_torch/csrc/viterbi_banded.cu",
            "viterbi_spl_tpu/hmm/viterbi_banded.py:467"),
 }
@@ -108,15 +127,22 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def run_counted(expect: set, what: str, fn, *args, **kwargs):
-    """fn(*args, **kwargs), failing unless the kernels it launched are
-    exactly those in expect (a path that silently took another route
-    launches others, or none)."""
+def counted(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), {kernel id: launches it made, where any})."""
     before = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
     out = fn(*args, **kwargs)
     made = {k: w.launches - before[k] for k, w in VD.KERNEL_WRAPPERS.items()}
-    check({k for k, n in made.items() if n} == expect,
-          f"{what} launched {made}, expected {sorted(expect)}")
+    return out, {k: n for k, n in made.items() if n}
+
+
+def run_counted(expect, what: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), failing unless the kernels it launched are
+    exactly those in expect (a path that silently took another route
+    launches others, or none): a set of kernel ids, or a dict of kernel id
+    to its exact number of launches."""
+    out, made = counted(fn, *args, **kwargs)
+    got = made if isinstance(expect, dict) else set(made)
+    check(got == expect, f"{what} launched {made}, expected {expect}")
     return out
 
 
@@ -534,6 +560,236 @@ def phase_fused_path(dev, errs, ctx) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# The window kernels K7/K8: the sequence-parallel decode; the track-sharded
+# paths; streaming.
+# ----------------------------------------------------------------------
+
+SEQ_T = 32768  # bench.py's T: one track of about 5.5 min at 10 ms
+SEQ_BLOCKS = 8
+SEQ_HALO = 64
+
+
+def window_cases():
+    """(label, A, pi) of the window kernels: bench.py's tonet matrix (shaped,
+    which K7/K8 take as dense) and imm's analytic 722-state matrix."""
+    return [("tonet 361", *shaped_matrix(360, 14, 0)),
+            ("imm 722", hmm_params.imm_transition_matrix(20, 721), np.full(722, 1.0 / 722))]
+
+
+def compare_windows(A, pi, log_obs, lengths, resets):
+    """K7/K8 against their plain versions over a batch of windows: (forward
+    error, backtrace error, every window with reset row 0 equals the
+    oracle). The errors are the largest absolute differences of t1_last, of
+    t1m1 up to each window's length and of the states."""
+    log_B, log_pi = prepare_log_params(A, pi)
+    dev = log_obs.device
+    lB, lpi = torch.from_numpy(log_B).to(dev), torch.from_numpy(log_pi).to(dev)
+    t1_k, m_k = VD.window_forward(log_B, log_pi, log_obs, lengths, resets)
+    t1_p, m_p = VD.window_forward_plain(lB, lpi, log_obs, lengths, resets)
+    start = torch.argmax(t1_p, dim=1)
+    st_k = VD.window_backtrace(log_B, m_k, start, lengths)
+    st_p = VD.window_backtrace_plain(lB, m_p, start, lengths)
+    torch.cuda.synchronize()
+    f_err = float((t1_k - t1_p).abs().max())
+    b_err, oracle_ok = 0.0, True
+    for n, L in enumerate(lengths):
+        L = int(L)
+        f_err = max(f_err, float((m_k[n, :L] - m_p[n, :L]).abs().max()))
+        b_err = max(b_err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
+        if resets[n] == 0:
+            oracle_ok = oracle_ok and bool(np.array_equal(st_k[n, :L].cpu().numpy(), viterbi_oracle_log(
+                log_B, log_pi, log_obs[n, :L].cpu().numpy())))
+    return f_err, b_err, oracle_ok
+
+
+def record_window_errors(errs, label, N, W, f_err, b_err, oracle_ok) -> None:
+    errs["K7"] = max(errs["K7"], f_err)
+    errs["K8"] = max(errs["K8"], b_err)
+    emit({"phase": "window_equality", "shape": label, "windows": N, "W": W,
+          "forward_max_abs_err": f_err, "backtrace_max_abs_err": b_err,
+          "reset0_windows_match_oracle": oracle_ok})
+    check(f_err == 0.0 and b_err == 0.0, f"K7/K8 {label}: kernels equal their plain versions")
+    check(oracle_ok, f"K7/K8 {label}: windows with reset row 0 equal the oracle")
+
+
+def phase_window_equality(dev, errs) -> None:
+    """K7/K8 over 8 ragged windows of up to 1024 frames, reset rows 0, -1
+    and 64, at 361 and 722 states."""
+    rng = np.random.default_rng(4)
+    N, W = 8, 1024
+    resets = np.array([0, 0, SEQ_HALO, -1, 0, SEQ_HALO, -1, SEQ_HALO], np.int32)
+    for label, A, pi in window_cases():
+        lengths = rng.integers(W // 4, W + 1, N).astype(np.int32)
+        lengths[0], lengths[1] = W, 1
+        log_obs = uniform_log_obs(N, W, A.shape[0], seed=A.shape[0] + 1, dev=dev)
+        record_window_errors(errs, label, N, W, *compare_windows(A, pi, log_obs, lengths, resets))
+
+
+def block_windows(log_obs, H):
+    """The time-block decode's SEQ_BLOCKS windows of a track on its device,
+    stacked as K7 gets them, with their lengths and reset rows."""
+    windows, lengths, resets = halo_windows(log_obs, [log_obs.device] * SEQ_BLOCKS, H)
+    return torch.stack(windows), np.array(lengths, np.int32), np.array(resets, np.int32)
+
+
+def phase_seq_path(dev, errs, ctx) -> tuple[dict, dict]:
+    """The sequence-parallel and track-sharded paths through their entry
+    points, the counts set to 0 just before them and read just after;
+    then what came out, and K7/K8 against their plain versions on the
+    inputs this path gave them. Returns the launches and what the timing
+    phase reuses."""
+    A, pi = shaped_matrix(360, 14, 0)
+    log_B, log_pi = prepare_log_params(A, pi)
+    g = torch.Generator(device=dev).manual_seed(2)
+    logits = torch.randn((1, SEQ_T, 360), generator=g, device=dev).sub_(2.0)
+    log_obs = OF.log_obs(logits, obs_cfg("shaun", 5, 0.0, None))[0]  # K5, before the counts
+    del logits
+    seq_mesh = make_mesh(seq=SEQ_BLOCKS, devices=[dev] * SEQ_BLOCKS)
+    A_s, pi_s, obs_s, switch = make_seam_stress_hmm(SEQ_BLOCKS)
+    sB, spi = prepare_log_params(A_s, pi_s)
+    stress_obs = log_obs_fn(torch.from_numpy(obs_s).to(dev))
+    imm_setup, tonet = ctx["imm_setup"], ctx["cli_setups"]["shaun"]
+    imm_T = min(lg.shape[0] for lg in ctx["imm_logits"])
+    imm_obs = torch.stack([log_obs_fn(imm_setup.observation_probs(lg[:imm_T]))
+                           for lg in ctx["imm_logits"]])
+    iB, ipi = prepare_log_params(imm_setup.transition_matrix, imm_setup.init_probs)
+    data4 = make_mesh(data=4, devices=[dev] * 4)
+    mesh_setup = dataclasses.replace(tonet, mesh=data4)
+    fused_setup = dataclasses.replace(tonet, mesh=data4, fused_obs=True)
+
+    # the entry points alone; nothing else launches a kernel until the
+    # counts are read
+    for wrapper in VD.KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    (states, halo), seq_made = counted(viterbi_decode_time_sharded, log_B, log_pi, log_obs,
+                                       seq_mesh, halo=SEQ_HALO)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    (stress_states, stress_halo), stress_made = counted(
+        viterbi_decode_time_sharded, sB, spi, stress_obs, seq_mesh, halo=16)
+    cli_mesh = {
+        method: run_counted(
+            {"K1": 1, "K2": 1}, f"CLI --mesh data=1 {method}", cli_decode.main,
+            [str(p) for p in ctx["paths"]]
+            + ["--family", "tonet", "--artifacts", str(ctx["hmm"]), "--out",
+               str(ctx["hmm"].parent / f"mesh-{method}"), "--method", method,
+               "--format", "npz", "--mesh", "data=1"])
+        for method in METHODS
+    }
+    mesh_lines = run_counted({"K1": 4, "K2": 4}, "DecoderSetup(mesh=data 4)",
+                             mesh_setup.decode_batch, ctx["cli_logits"])
+    fused_lines = run_counted({"K5": 1, "K1": 4, "K2": 4}, "DecoderSetup(mesh=data 4, fused_obs)",
+                              fused_setup.decode_batch, ctx["cli_logits"])
+    imm_states = run_counted({"K3": 4, "K4": 4}, "decode_tracks_sharded imm 722",
+                             decode_tracks_sharded, iB, ipi, imm_obs, data4)
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    tries = int(np.log2(halo // SEQ_HALO)) + 1 if halo > 0 else -1
+    emit({"phase": "seq_path", "T": SEQ_T, "S": 361, "blocks": SEQ_BLOCKS, "final_halo": halo,
+          "halos_tried": tries, "seconds": seq_s, "stress_final_halo": stress_halo,
+          "launches_time_sharded": seq_made, "launches_stress": stress_made,
+          "launches": launches})
+
+    # what came out (these launches come after the counts and do not count)
+    check(halo != -1, "the tonet track's seam certificate passed below the block length")
+    check(seq_made == {"K7": tries, "K8": tries},
+          f"the time-sharded decode launched one K7 and one K8 per halo tried: {seq_made}")
+    check(stress_made == {"K7": 3, "K8": 3} and stress_halo == 64,
+          f"seam stress: two forced doublings 16 -> 32 -> 64 ({stress_halo}, {stress_made})")
+    t1_last, t1m1 = VD.viterbi_forward(log_B, log_pi, log_obs, SEQ_T)
+    single = VD.viterbi_backtrace(t1m1, log_B, torch.argmax(t1_last), SEQ_T).cpu().numpy()
+    del t1m1
+    check(np.array_equal(states.cpu().numpy(), single),
+          "the time-sharded states equal the single-track K7 -> K8 decode")
+    t0 = time.perf_counter()
+    oracle = viterbi_oracle_log(log_B, log_pi, log_obs.cpu().numpy())
+    oracle_s = time.perf_counter() - t0
+    check(np.array_equal(single, oracle), "the single-track decode equals the oracle")
+    exact = viterbi_oracle_log(sB, spi, stress_obs.cpu().numpy())
+    check(int(np.argmax(exact == 1)) == switch, "seam stress: the exact path switches at the nudge")
+    check(np.array_equal(stress_states.cpu().numpy(), exact), "seam stress: the exact path")
+    stress = {}
+    for h, should_pass in ((16, False), (32, False), (64, True)):
+        st, seams = viterbi_sharded_time_blocks(sB, spi, stress_obs, seq_mesh, halo=h)
+        ok, match = bool(seams.all()), np.array_equal(st.cpu().numpy(), exact)
+        stress[h] = ok
+        check(ok == should_pass and (match or not ok) and (match or not should_pass),
+              f"seam stress at halo {h}: certificate {ok}, exact path {match}")
+    for method, recs in cli_mesh.items():
+        for rec, want in zip(recs, ctx["cli_recs"][method]):
+            check(np.array_equal(rec["voiced"], want["voiced"])
+                  and np.array_equal(rec["bins"], want["bins"]),
+                  f"{method}: --mesh data=1 {rec['name']} equals the unsharded line")
+    for lines, label in ((mesh_lines, "default"), (fused_lines, "fused_obs")):
+        for (v, b), want in zip(lines, ctx["cli_recs"]["shaun"]):
+            check(np.array_equal(v, want["voiced"]) and np.array_equal(b, want["bins"]),
+                  f"DecoderSetup(mesh=data 4, {label}) equals the unsharded lines")
+    one = VD.viterbi_decode_batch_logobs(transition_matrix=imm_setup.transition_matrix,
+                                         prob_init=imm_setup.init_probs, log_obs=imm_obs,
+                                         lengths=np.full(len(imm_obs), imm_T, np.int32))
+    check(torch.equal(imm_states, one), "decode_tracks_sharded equals the unsharded decode")
+    check(np.array_equal(imm_states[0].cpu().numpy(),
+                         viterbi_oracle_log(iB, ipi, imm_obs[0].cpu().numpy())),
+          "decode_tracks_sharded track 0 equals the oracle")
+    emit({"phase": "seq_path_checks", "time_sharded_equals_single_track": True,
+          "single_track_equals_oracle": True, "oracle_seconds": oracle_s,
+          "stress_certificate_by_halo": stress, "mesh_lines_equal_unsharded": True})
+
+    # K7/K8 against their plain versions on this path's windows: the 8
+    # blocks at the final halo and the whole track as one window
+    windows, lengths, resets = block_windows(log_obs, halo)
+    record_window_errors(errs, f"seq path tonet 361 halo {halo}", SEQ_BLOCKS, windows.shape[1],
+                         *compare_windows(A, pi, windows, lengths, resets))
+    del windows
+    record_window_errors(errs, "seq path tonet 361 whole track", 1, SEQ_T,
+                         *compare_windows(A, pi, log_obs[None], np.array([SEQ_T], np.int32),
+                                          np.zeros(1, np.int32)))
+    return launches, dict(log_obs=log_obs, halo=halo, mesh=seq_mesh, A=A, pi=pi)
+
+
+def phase_streaming(dev) -> dict:
+    """StreamingViterbiBatch at tonet 361: 64 streams, 32-frame pushes (320
+    ms of audio), lag 128 and lag >= length over 4096 frames of K5's log
+    observations of bench.py's serving logits; the counts set to 0 just
+    before the pushes and read just after. Exactly K1/K2 launch (K1 once per
+    push, K2 once per emitting push and flush); with lag >= length the
+    states equal the offline decode."""
+    A, pi = shaped_matrix(360, 14, 0)
+    M, T, hop = 64, 4096, 32
+    g = torch.Generator(device=dev).manual_seed(4)
+    logits = torch.randn((M, T, 360), generator=g, device=dev).sub_(2.0)
+    log_obs = OF.log_obs(logits, obs_cfg("shaun", 5, 0.0, None))
+    del logits
+    offline = VD.viterbi_decode_batch_logobs(transition_matrix=A, prob_init=pi, log_obs=log_obs,
+                                             lengths=np.full(M, T, np.int32)).cpu().numpy()
+    pushes = T // hop
+    runs = {}
+    for wrapper in VD.KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    for lag in (128, T):
+        pool = StreamingViterbiBatch(A, pi, M, lag=lag, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [pool.push(log_obs[:, i:i + hop], is_log=True) for i in range(0, T, hop)]
+        outs.append(pool.flush())
+        wall = time.perf_counter() - t0
+        runs[lag] = (np.concatenate(outs, axis=1), 1e3 * wall / pushes)
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    emitting = sum(1 for lag in runs for k in range(1, pushes + 1) if k * hop > lag) + len(runs)
+    agree = float(np.mean(runs[128][0] == offline))
+    rec = {"phase": "streaming", "streams": M, "frames": T, "hop": hop, "lags": list(runs),
+           "ms_per_push": {lag: r[1] for lag, r in runs.items()},
+           "lag128_agreement_with_offline": agree, "launches": launches}
+    emit(rec)
+    check({k for k, n in launches.items() if n} == {"K1", "K2"}
+          and launches["K1"] == 2 * pushes and launches["K2"] == emitting,
+          f"streaming launched exactly K1 per push and K2 per emission: {launches}")
+    check(all(r[0].shape == (M, T) for r in runs.values()), "every frame emitted once")
+    check(np.array_equal(runs[T][0], offline), "streaming with lag >= length equals the offline decode")
+    return rec
+
+
 def bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
     the FP32 operations over the FP32 rate."""
@@ -542,13 +798,14 @@ def bound(nbytes, ops):
 
 
 def work(kernel, S, lengths, bs=None):
-    """(bytes, operations) of K1-K4: each input and output once, and the
-    FP32 operations this run's lengths need."""
+    """(bytes, operations) of K1-K4, K7 and K8: each input and output once,
+    and the FP32 operations this run's lengths need (K7 as K3, K8 as K4)."""
     frames = int(np.sum(lengths))
     steps = int(np.sum(np.asarray(lengths) - 1))
     row = 4 * S
-    if kernel in ("K1", "K3"):
-        nbytes = 2 * frames * row + (S * S * 4 if kernel == "K3" else 0)
+    dense = kernel in ("K3", "K4", "K7", "K8")  # read the whole [S, S] table
+    if kernel in ("K1", "K3", "K7"):
+        nbytes = 2 * frames * row + (S * S * 4 if dense else 0)
         if kernel == "K1":
             n = S - 1
             inband = sum(min(bs.d_max, n - 1 - s) - max(-bs.d_max, -s) + 1 for s in range(n))
@@ -558,7 +815,7 @@ def work(kernel, S, lengths, bs=None):
         else:
             ops = steps * 2 * S * S
     else:
-        nbytes = steps * row + frames * 4 + (S * S * 4 if kernel == "K4" else 0)
+        nbytes = steps * row + frames * 4 + (S * S * 4 if dense else 0)
         ops = steps * 2 * S  # one add and one compare per candidate
     return nbytes, ops
 
@@ -766,6 +1023,76 @@ def phase_serving(dev) -> dict:
     return results
 
 
+def phase_seq_timing(dev, seq) -> dict:
+    """K7 and K8 alone and the single-track decode K7 -> argmax -> K8 on the
+    32768-frame tonet track of phase 3c and on an imm 722 track of 4096
+    frames (uniform log observations); on the tonet track also the
+    time-sharded decode: K7 and K8 over its 8 windows at the final halo
+    (one launch each), one halo attempt (windows, K7, argmax, K8 and the
+    certificate) at each halo the certified decode tried, and the
+    certified decode from halo 64."""
+    T_PLAIN = 32
+    imm_A = hmm_params.imm_transition_matrix(20, 721)
+    cases = [("tonet 361 track", seq["A"], seq["pi"], seq["log_obs"]),
+             ("imm 722 track", imm_A, np.full(722, 1.0 / 722),
+              uniform_log_obs(1, 4096, 722, seed=9, dev=dev)[0])]
+    results = {}
+    for label, A, pi, log_obs in cases:
+        T, S = log_obs.shape
+        log_B, log_pi = (torch.from_numpy(x).to(dev) for x in prepare_log_params(A, pi))
+        out = {}
+        ms_f = cuda_ms(lambda: out.update(f=VD.viterbi_forward(log_B, log_pi, log_obs, T)), 5)
+        t1_last, t1m1 = out.pop("f")
+        last = torch.argmax(t1_last)
+        ms_b = cuda_ms(lambda: VD.viterbi_backtrace(t1m1, log_B, last, T), 5)
+        del t1m1
+
+        def decode():
+            t1, rows = VD.viterbi_forward(log_B, log_pi, log_obs, T)
+            return VD.viterbi_backtrace(rows, log_B, torch.argmax(t1), T)
+
+        ms_dec = cuda_ms(decode, 5)
+        short = log_obs[None, :T_PLAIN].contiguous()
+        one, zero = np.array([T_PLAIN], np.int32), np.zeros(1, np.int32)
+        res = {}
+        ms_fp = cuda_ms(lambda: res.update(f=VD.window_forward_plain(
+            log_B, log_pi, short, one, zero)), 1) * T / T_PLAIN
+        t1_s, rows_s = res["f"]
+        start = torch.argmax(t1_s, dim=1)
+        ms_bp = cuda_ms(lambda: VD.window_backtrace_plain(log_B, rows_s, start, one), 1) * T / T_PLAIN
+        bf, bb = bounds("K7", S, [T]), bounds("K8", S, [T])
+        rec = {"phase": "timing", "shape": label, "N": 1, "T": T, "S": S,
+               "decode_ms": ms_dec, "frames_per_s": T / (ms_dec / 1e3),
+               "K7_ms": ms_f, "K8_ms": ms_b, "K7_plain_ms": ms_fp, "K8_plain_ms": ms_bp,
+               "K7_bound_ms": bf[0], "K7_bound_by": bf[1],
+               "K8_bound_ms": bb[0], "K8_bound_by": bb[1], "plain_T": T_PLAIN}
+        if label.startswith("tonet"):
+            H = seq["halo"]
+            windows, lengths, resets = block_windows(log_obs, H)
+            ms_wf = cuda_ms(lambda: out.update(f=VD.window_forward(
+                log_B, log_pi, windows, lengths, resets)), 5)
+            t1_w, m_w = out.pop("f")
+            st = torch.argmax(t1_w, dim=1)
+            ms_wb = cuda_ms(lambda: VD.window_backtrace(log_B, m_w, st, lengths), 5)
+            del m_w, windows
+            ms_attempt = {h: cuda_ms(lambda: viterbi_sharded_time_blocks(
+                log_B, log_pi, log_obs, seq["mesh"], halo=h), 5)
+                for h in SEQ_HALO * 2 ** np.arange(int(np.log2(H // SEQ_HALO)) + 1)}
+            ms_auto = cuda_ms(lambda: viterbi_decode_time_sharded(
+                log_B, log_pi, log_obs, seq["mesh"], halo=SEQ_HALO), 3)
+            wf, wb = bounds("K7", S, lengths), bounds("K8", S, lengths)
+            rec.update({"halo": H, "blocks": SEQ_BLOCKS,
+                        "K7_windows_ms": ms_wf, "K8_windows_ms": ms_wb,
+                        "K7_windows_bound_ms": wf[0], "K8_windows_bound_ms": wb[0],
+                        "time_sharded_ms_per_halo_attempt": {int(h): ms for h, ms in ms_attempt.items()},
+                        "time_sharded_decode_ms": ms_auto,
+                        "speedup_vs_single_track": ms_dec / ms_auto})
+        emit(rec)
+        results[label] = rec
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -792,16 +1119,22 @@ def main() -> int:
     errs["K9_vs_K5K6_K1"] = 0.0
     phase_equality(dev, errs)
     phase_obs_equality(dev, errs)
+    phase_window_equality(dev, errs)
     with tempfile.TemporaryDirectory() as tmp:
         launches, ctx = phase_main_path(dev, errs, Path(tmp))
         fused_launches = phase_fused_path(dev, errs, ctx)
+        seq_launches, seq = phase_seq_path(dev, errs, ctx)
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
+    launches.update({k: seq_launches[k] for k in ("K7", "K8")})
+    phase_streaming(dev)
     timing = phase_timing(dev, full_width_shapes())
     timing.update(phase_serving(dev))
+    timing.update(phase_seq_timing(dev, seq))
 
     headline = {"K1": "tonet 361", "K2": "tonet 361", "K3": "imm 722", "K4": "imm 722",
-                "K5": "tonet 361 serving", "K6": "tonet 361 serving", "K9": "tonet 361 serving"}
+                "K5": "tonet 361 serving", "K6": "tonet 361 serving", "K9": "tonet 361 serving",
+                "K7": "tonet 361 track", "K8": "tonet 361 track"}
     kernels = []
     for k, (name, source, replaces) in KERNEL_INFO.items():
         def entry(rec):

@@ -2,7 +2,9 @@
 with exact equality of t1_last, of t1m1 up to each track's length, and of
 the decoded states, with ragged lengths and N not a multiple of 8; K5/K6
 under the observation contract (hmm/obs_fused.py::obs_contract); K9
-bit-equal to K5/K6 -> K1.
+bit-equal to K5/K6 -> K1; K7/K8 (the window kernels) exactly, with reset
+rows, and the time-block decode's launches over a mesh of blocks on one
+card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so that it also runs where jax is absent:
@@ -217,3 +219,56 @@ def test_fused_decode_api_runs_the_kernels(cuda, rng):
             np.testing.assert_array_equal(
                 got[n, :L], viterbi_oracle_log(log_B, log_pi, log_obs[n, :L])
             )
+
+
+RESETS = np.array([0, -1, 16, 0, -1, 5], np.int32)  # K7's reset rows, each < its length
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [361, 722])
+def test_cuda_k7_k8_match_plain(cuda, rng, S):
+    """K7/K8 (the window kernels of the sequence-parallel decode) against
+    their plain versions over ragged windows with reset rows 0, -1 and
+    mid-window, in one launch each: exact t1_last, t1m1 up to each length
+    and states; a window with reset row 0 against the oracle."""
+    if S == 722:
+        A, pi = TP.imm_transition_matrix(20, 721), np.full(S, 1.0 / S)
+    else:
+        A, pi = _shaped(rng, 360, 14)
+    log_B, log_pi = prepare_log_params(A, pi)
+    log_obs = _log_obs(rng, len(LENGTHS), 96, S)
+    lB, lpi = torch.from_numpy(log_B), torch.from_numpy(log_pi)
+    resets = np.minimum(RESETS, LENGTHS - 1)
+    launches = (TD.window_forward.launches, TD.window_backtrace.launches)
+    t1_p, t1m1_p = TD.window_forward_plain(lB, lpi, log_obs, LENGTHS, resets)
+    t1_k, t1m1_k = TD.window_forward(log_B, log_pi, log_obs.to(cuda), LENGTHS, resets)
+    start = torch.argmax(t1_p, dim=1)
+    st_p = TD.window_backtrace_plain(lB, t1m1_p, start, LENGTHS)
+    st_k = TD.window_backtrace(log_B, t1m1_k, start.to(cuda), LENGTHS)
+    torch.cuda.synchronize()
+    assert (TD.window_forward.launches, TD.window_backtrace.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    _check(t1_k, t1m1_k, st_k, t1_p, t1m1_p, st_p, LENGTHS)
+    np.testing.assert_array_equal(
+        st_k[0].cpu().numpy(), viterbi_oracle_log(log_B, log_pi, log_obs[0].numpy())
+    )
+
+
+@pytest.mark.gpu
+def test_time_blocks_one_launch_per_device(cuda, rng):
+    """The time-block decode over a mesh of 4 blocks on one card runs one K7
+    and one K8 launch, and gives the CPU mesh's states and seam flags."""
+    from viterbi_spl_tpu_torch.dist import make_mesh, viterbi_sharded_time_blocks
+
+    A, pi = _shaped(rng, 60, 6)
+    log_B, log_pi = prepare_log_params(A, pi)
+    log_obs = _log_obs(rng, 3, 512, 61)[0]  # a track with no ties (the last two have)
+    launches = (TD.window_forward.launches, TD.window_backtrace.launches)
+    got = viterbi_sharded_time_blocks(log_B, log_pi, log_obs.to(cuda),
+                                      make_mesh(seq=4, devices=[cuda] * 4), halo=32)
+    assert (TD.window_forward.launches, TD.window_backtrace.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    want = viterbi_sharded_time_blocks(log_B, log_pi, log_obs,
+                                       make_mesh(seq=4, devices=["cpu"] * 4), halo=32)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

@@ -18,7 +18,9 @@ HMM parameters are read from the reference-format .dat artifacts
 
 It runs on CUDA; `--device cpu` runs the same dispatch with the kernels'
 plain PyTorch versions. `--fused-obs` computes the observation model with
-the fused kernels K5/K6 on the whole batch.
+the fused kernels K5/K6 on the whole batch. `--mesh data=N` splits each
+batch's tracks over N CUDA devices (N blocks of the CPU with
+`--device cpu`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..dist.mesh import make_mesh
 from ..families import family_spec
 from ..harness.evaluate import ALLOWED_VITERBI_METHODS, DecoderSetup
 from ..io import load_array
@@ -49,6 +52,29 @@ def load_logits(path: Path, transposed: bool) -> np.ndarray:
     if arr.ndim != 2:
         raise ValueError(f"{path}: expected 2-D logits, got shape {arr.shape}")
     return arr.T if transposed else arr
+
+
+def parse_mesh(mesh_arg: str | None, device=None):
+    """--mesh data=N -> a 1-axis device mesh (None when unset): N CUDA
+    devices (an error when there are fewer), or N blocks of the CPU when
+    the device is the CPU."""
+    if not mesh_arg:
+        return None
+    try:
+        kv = dict(part.split("=", 1) for part in mesh_arg.split(","))
+        n_data = int(kv.pop("data", 1))
+    except ValueError:
+        raise SystemExit(
+            f"--mesh: expected comma-separated axis=N (e.g. data=8), got {mesh_arg!r}"
+        )
+    if kv:
+        raise SystemExit(f"--mesh: only data=N is supported, got {kv}")
+    if torch.device(device or "cuda").type == "cpu":
+        return make_mesh(data=n_data, devices=["cpu"] * n_data)
+    n_cuda = torch.cuda.device_count()
+    if n_cuda < n_data:
+        raise SystemExit(f"--mesh data={n_data}: only {n_cuda} CUDA devices")
+    return make_mesh(data=n_data, devices=[torch.device("cuda", i) for i in range(n_data)])
 
 
 def build_setup(args) -> DecoderSetup:
@@ -85,6 +111,7 @@ def build_setup(args) -> DecoderSetup:
         interp_est_notes=spec.interp_est_notes,
         fused_obs=getattr(args, "fused_obs", False),
         device=getattr(args, "device", None),
+        mesh=parse_mesh(getattr(args, "mesh", None), getattr(args, "device", None)),
     )
 
 
@@ -173,6 +200,11 @@ def main(argv=None):
                          "(K5/K6) on the whole batch, feeding the decoder "
                          "directly (all methods; see hmm/obs_fused.py for "
                          "the tolerance contract)")
+    ap.add_argument("--mesh", default=None,
+                    help="split the decode batch's tracks over a device "
+                         "mesh, e.g. data=8 (N CUDA devices; with --device "
+                         "cpu, N blocks of the CPU); paths identical to one "
+                         "device")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")

@@ -15,7 +15,9 @@ The observation model and the metrics run in PyTorch on the setup's device
 batched decode API (hmm/viterbi_dense.py): the CUDA kernels K1-K4 on the
 GPU, their plain versions of the same dispatch on the CPU. With
 `fused_obs`, the observation model is the fused kernel K5/K6
-(hmm/obs_fused.py) on the whole batch instead.
+(hmm/obs_fused.py) on the whole batch instead. With a `mesh`
+(dist/mesh.py), the decode splits the batch's tracks over the mesh's
+"data" devices.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..dist.mesh import Mesh
 from ..hmm import obs_fused
 from ..hmm.obs import shaun_observation_probs, softmax_observation_probs
 from ..hmm.viterbi import prepare_log_params
@@ -72,22 +75,25 @@ class DecoderSetup:
     # where the observation model, the decode and the metrics run: CUDA
     # unless "cpu" is asked for (raises when CUDA is absent)
     device: object = None
+    # optional dist.Mesh with a "data" axis: decode batches split tracks
+    # across its devices (paths identical to one device). None = the
+    # setup's device alone.
+    mesh: object = None
 
     def __post_init__(self):
         if self.method not in ALLOWED_VITERBI_METHODS:
             raise ValueError(f"unknown viterbi method {self.method}")
         self.device = resolve_device(self.device)
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise ValueError(f"mesh must be a viterbi_spl_tpu_torch.dist.Mesh, got {type(self.mesh)}")
         # validates A and pi; the decode API derives its tables the same way
         prepare_log_params(self.transition_matrix, self.init_probs)
 
     @classmethod
     def from_numpy(cls, fields: dict, device=None) -> "DecoderSetup":
         """A setup from the numpy/scalar fields of the JAX package's
-        DecoderSetup (dataclasses.asdict), fused_obs included. Only `mesh`
-        is dropped: the port has no sharded decode yet, so a mesh raises."""
-        fields = dict(fields)
-        if fields.pop("mesh", None) is not None:
-            raise ValueError("the port has no sharded decode: mesh must be None")
+        DecoderSetup (dataclasses.asdict), fused_obs and mesh included. The
+        mesh must be the port's own (dist.make_mesh): a jax Mesh raises."""
         return cls(**fields, device=device)
 
     @property
@@ -129,6 +135,7 @@ class DecoderSetup:
             prob_init=self.init_probs,
             probs_st_list=[o.T for o in obs_list],
             device=self.device,
+            mesh=self.mesh,
         )
         out = []
         for states in states_list:
@@ -146,8 +153,9 @@ class DecoderSetup:
     def _decode_batch_fused(self, logits_list: Sequence) -> list[tuple[np.ndarray, np.ndarray]]:
         """Fused serving path: the batch staged on the host as one
         zero-filled [N, T_max, n_bins] array and copied to the device once,
-        the fused observation kernel (K5/K6), then the batched decode with
-        the lengths. (Frames past a track's length are zeros, which the
+        the fused observation kernel (K5/K6) on the whole batch, then the
+        batched decode with the lengths (split over the mesh's data devices
+        when there is one). (Frames past a track's length are zeros, which the
         decode never reads.) As in the JAX package, this path does not take
         the in-forward variant K9 (viterbi_decode_batch_fused_obs)."""
         lengths = [np.asarray(lg).shape[0] for lg in logits_list]
@@ -158,6 +166,7 @@ class DecoderSetup:
         states = viterbi_decode_batch_logobs(
             transition_matrix=self.transition_matrix, prob_init=self.init_probs,
             log_obs=obs_fused.log_obs(logits, self.obs_config()), lengths=lengths,
+            mesh=self.mesh,
         ).cpu().numpy()
         out = []
         for i, L in enumerate(lengths):

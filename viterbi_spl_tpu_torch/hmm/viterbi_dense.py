@@ -1,12 +1,16 @@
-"""Dense batched Viterbi kernels and the batched decode API (counterpart of
-the `_batch` half of viterbi_spl_tpu/hmm/viterbi_pallas.py).
+"""Dense Viterbi kernels and the decode APIs (counterpart of
+viterbi_spl_tpu/hmm/viterbi_pallas.py).
 
-K3 (forward) and K4 (backtrace) are CUDA C++ in csrc/viterbi_dense.cu,
-each with its plain PyTorch version here. The forward stores no
-backpointers: it writes the shifted rows t1m1[:, t] = T1[t-1] (row 0
-zeros), and the backtrace rebuilds each pointer as the first-max argmax of
-t1m1[t] + logB[s_t, :] — the very row the forward step reduced, so paths
-are bit-identical to storing backpointers, and to the NumPy oracle.
+K3 (forward) and K4 (backtrace) decode batches of tracks; K7 (forward) and
+K8 (backtrace) decode windows of one track, each with its own length, reset
+row and start state (the single-track kernels of the JAX package, which the
+sequence-parallel decode runs over its time blocks). All four are CUDA C++
+in csrc/viterbi_dense.cu, each with its plain PyTorch version here. The
+forward stores no backpointers: it writes the shifted rows
+t1m1[:, t] = T1[t-1] (row 0 zeros), and the backtrace rebuilds each
+pointer as the first-max argmax of t1m1[t] + logB[s_t, :] — the very row
+the forward step reduced, so paths are bit-identical to storing
+backpointers, and to the NumPy oracle.
 
 `viterbi_decode_batch_logobs` keeps the dispatch of the JAX package's
 `viterbi_decode_batch_pallas_logobs`: the banded forward (K1) when the
@@ -19,6 +23,10 @@ or S.
 `viterbi_decode_batch_fused_obs` is the serving path from raw logits: the
 forward with the observation model inside it (K9) when the structure is
 banded, else the observation kernel (K5/K6) and the dense decode.
+
+With `mesh` (dist/mesh.py), the batch decode APIs split the tracks over the
+mesh's "data" devices and run the same dispatch on each device's share.
+`viterbi_decode` is the single-track decode over K7 -> K8.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
-from ..utils import resolve_device
+from ..utils import on_device, resolve_device
 from . import obs_fused
 from .viterbi import first_argmax, log_obs_fn, prepare_log_params
 from .viterbi_banded import (
@@ -40,34 +48,43 @@ from .viterbi_banded import (
 )
 
 
-def dense_forward_plain(log_B, log_pi, log_obs, lengths):
-    """K3's plain version: log_B [S, S] (= log(A.T + tiny)), log_pi [S],
-    log_obs [N, T, S], lengths [N] -> (t1_last [N, S], t1m1 [N, T, S])."""
-    N, T, S = log_obs.shape
+def window_forward_plain(log_B, log_pi, log_obs, lengths, reset_rows):
+    """K7's plain version, the single-track forward of
+    viterbi_pallas.py::_forward_kernel over a batch of windows: log_B
+    [S, S], log_pi [S], log_obs [N, W, S], lengths [N] (1 <= T <= W) and
+    reset_rows [N] (-1 <= r < T) -> (t1_last [N, S] = T1 at frame T - 1,
+    t1m1 [N, W, S] with t1m1[:, t] = T1[t - 1], row 0 zeros). Frame 0
+    starts from log_pi + obs when the reset row is 0 and from obs alone (a
+    cold start) otherwise; at frame t == reset row the carry restarts from
+    log_pi + obs[t], overriding the DP step; frames at or beyond T keep the
+    carry."""
+    N, W, S = log_obs.shape
     dev = log_obs.device
-    lengths = torch.as_tensor(lengths, device=dev)
-    log_B = log_B.to(dev)
-    prev = log_pi.to(dev)[None, :] + log_obs[:, 0]
+    lengths = torch.as_tensor(lengths, device=dev)[:, None]
+    reset = torch.as_tensor(reset_rows, device=dev)[:, None]
+    log_B, log_pi = log_B.to(dev), log_pi.to(dev)[None, :]
+    prev = torch.where(reset == 0, log_pi + log_obs[:, 0], log_obs[:, 0])
     t1m1 = torch.zeros_like(log_obs)
-    for t in range(1, T):
+    for t in range(1, W):
         t1m1[:, t] = prev
-        m = (prev[:, None, :] + log_B[None]).amax(dim=2)  # [N, s]
-        prev = torch.where((t < lengths)[:, None], m + log_obs[:, t], prev)
+        m = (prev[:, None, :] + log_B[None]).amax(dim=2)
+        new = torch.where(t == reset, log_pi + log_obs[:, t], m + log_obs[:, t])
+        prev = torch.where(t < lengths, new, prev)
     return prev, t1m1
 
 
-def dense_backtrace_plain(log_B, t1m1, last_states, lengths):
-    """K4's plain version -> states [N, T] int32 (zeros at or beyond each
-    track's length)."""
-    N, T, S = t1m1.shape
+def window_backtrace_plain(log_B, t1m1, start_states, lengths):
+    """K8's plain version, the chase of viterbi_pallas.py::_backtrace_kernel
+    over a batch of windows: from start_states[n] at frame lengths[n] - 1,
+    s_{t-1} = first-argmax(t1m1[t] + log_B[s_t]). Returns states [N, W]
+    int32; entries at or beyond each window's length are zeros."""
+    N, W, S = t1m1.shape
     dev = t1m1.device
     log_B = log_B.to(dev)
     lengths = torch.as_tensor(lengths, device=dev)
-    last = torch.as_tensor(last_states, device=dev).to(torch.int64)
-    states = torch.zeros((N, T), dtype=torch.int32, device=dev)
-    s = last.clone()
-    for t in range(T - 1, -1, -1):
-        s = torch.where(t == lengths - 1, last, s)
+    s = torch.as_tensor(start_states, device=dev).to(torch.int64)
+    states = torch.zeros((N, W), dtype=torch.int32, device=dev)
+    for t in range(W - 1, -1, -1):
         active = t < lengths
         states[:, t] = torch.where(active, s, 0).to(torch.int32)
         bp = first_argmax(t1m1[:, t] + log_B[s], dim=1)
@@ -75,11 +92,27 @@ def dense_backtrace_plain(log_B, t1m1, last_states, lengths):
     return states
 
 
+def dense_forward_plain(log_B, log_pi, log_obs, lengths):
+    """K3's plain version: log_B [S, S] (= log(A.T + tiny)), log_pi [S],
+    log_obs [N, T, S], lengths [N] -> (t1_last [N, S], t1m1 [N, T, S]).
+    K7's with every reset row 0: K3 and K7 share one DP body, here as in
+    csrc/viterbi_dense.cu."""
+    return window_forward_plain(log_B, log_pi, log_obs, lengths, np.zeros(log_obs.shape[0], np.int32))
+
+
+# K4's plain version -> states [N, T] int32 (zeros at or beyond each
+# track's length): K8's chase from each track's last state (the kernels
+# share one chase, csrc/viterbi_dense.cu::dense_chase)
+dense_backtrace_plain = window_backtrace_plain
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "vspl_dense_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vspl_dense_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vspl_window_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vspl_window_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -138,8 +171,72 @@ def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths):
     return states
 
 
+def window_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, reset_rows):
+    """K7: the dense forward over a batch of windows of one track, each with
+    its own length and reset row, in one launch (one cluster per window).
+    Same contract as window_forward_plain; on the GPU, rows of t1m1 at or
+    beyond a window's length are left unwritten."""
+    N, W, S = log_obs.shape
+    lens = cuda_lib.host_lengths(lengths, N, W)
+    reset = np.asarray(reset_rows, np.int32)
+    if reset.shape != (N,) or (reset < -1).any() or (reset >= lens).any():
+        raise ValueError(f"reset_rows must be [N={N}] in [-1, length), got {reset}")
+    log_B = torch.as_tensor(log_B, dtype=torch.float32)
+    log_pi = torch.as_tensor(log_pi, dtype=torch.float32)
+    if log_B.shape != (S, S) or log_pi.shape != (S,):
+        raise ValueError(f"bad shapes log_B={tuple(log_B.shape)} log_pi={tuple(log_pi.shape)}")
+    if log_obs.device.type == "cpu":
+        return window_forward_plain(log_B, log_pi, log_obs, lens, reset)
+    dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
+    log_A = log_B.to(dev).t().contiguous()
+    log_pi = log_pi.to(dev).contiguous()
+    lens_d = torch.as_tensor(lens, device=dev)
+    reset_d = torch.as_tensor(reset, device=dev)
+    t1m1 = torch.empty_like(log_obs)
+    t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
+    P = cuda_lib.ptr
+    rc = lib.vspl_window_forward(
+        P(log_obs), P(log_A), P(log_pi), P(lens_d), P(reset_d), P(t1m1), P(t1_last),
+        N, W, S, cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(lib, rc, "window forward (K7)")
+    window_forward.launches += 1
+    return t1_last, t1m1
+
+
+def window_backtrace(log_B, t1m1: torch.Tensor, start_states, lengths):
+    """K8: the chase over a batch of windows, each from its own start state
+    at its last frame, in one launch (one warp per window). Returns states
+    [N, W] int32; entries at or beyond each window's length are
+    unspecified."""
+    N, W, S = t1m1.shape
+    lens = cuda_lib.host_lengths(lengths, N, W)
+    log_B = torch.as_tensor(log_B, dtype=torch.float32)
+    if log_B.shape != (S, S):
+        raise ValueError(f"log_B must be [{S}, {S}], got {tuple(log_B.shape)}")
+    if t1m1.device.type == "cpu":
+        return window_backtrace_plain(log_B, t1m1, start_states, lens)
+    dev = cuda_lib.cuda_operand(t1m1, "t1m1").device
+    log_B = log_B.to(dev).contiguous()
+    start = torch.as_tensor(start_states).to(dev, torch.int32).contiguous()
+    lens_d = torch.as_tensor(lens, device=dev)
+    states = torch.empty((N, W), dtype=torch.int32, device=dev)
+    lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
+    P = cuda_lib.ptr
+    rc = lib.vspl_window_backtrace(
+        P(t1m1), P(log_B), P(start), P(lens_d), P(states), N, W, S,
+        cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(lib, rc, "window backtrace (K8)")
+    window_backtrace.launches += 1
+    return states
+
+
 dense_forward.launches = 0
 dense_backtrace.launches = 0
+window_forward.launches = 0
+window_backtrace.launches = 0
 
 # every kernel wrapper of the decode path, by kernel id
 KERNEL_WRAPPERS = {
@@ -149,16 +246,69 @@ KERNEL_WRAPPERS = {
     "K4": dense_backtrace,
     "K5": obs_fused.shaun_log_obs,
     "K6": obs_fused.softmax_log_obs,
+    "K7": window_forward,
+    "K8": window_backtrace,
     "K9": banded_forward_obs,
 }
 
 
+def viterbi_forward(log_B, log_pi, log_obs: torch.Tensor, T: int, reset_row: int = 0):
+    """Single-track forward (counterpart of viterbi_forward_pallas, without
+    its lane and frame padding): log_obs [W, S] with T <= W real frames ->
+    (t1_last [S], t1m1 [W, S]). reset_row: 0 for an ordinary decode, -1 for
+    a cold start, else the frame whose carry restarts from log_pi + obs.
+    K7 on the GPU."""
+    t1_last, t1m1 = window_forward(log_B, log_pi, log_obs[None], [T], [reset_row])
+    return t1_last[0], t1m1[0]
+
+
+def viterbi_backtrace(t1m1: torch.Tensor, log_B, last_state, T: int) -> torch.Tensor:
+    """Single-track chase (counterpart of viterbi_backtrace_pallas): states
+    [W] int32 from last_state at frame T - 1; entries at or beyond T are
+    unspecified. K8 on the GPU."""
+    start = torch.as_tensor(last_state).reshape(1)
+    return window_backtrace(log_B, t1m1[None], start, [T])[0]
+
+
+def viterbi_decode(*, transition_matrix, prob_init, probs_st, device=None) -> np.ndarray:
+    """Single-track decode with the oracle's signature (counterpart of
+    viterbi_decode_pallas): probs_st [S, T] -> [T] int64 states, K7 -> the
+    first-max argmax -> K8 on the GPU."""
+    dev = resolve_device(device)
+    log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
+    probs = torch.as_tensor(np.asarray(probs_st, np.float32)).to(dev)
+    T = probs.shape[1]
+    t1_last, t1m1 = viterbi_forward(log_B, log_pi, log_obs_fn(probs.T.contiguous()), T)
+    states = viterbi_backtrace(t1m1, log_B, torch.argmax(t1_last), T)
+    return states.cpu().numpy().astype(np.int64)
+
+
+def decode_over_data(mesh, batch: torch.Tensor, lengths, decode) -> torch.Tensor:
+    """decode(share, share_lengths) on each "data" device's share of the
+    batch (contiguous shares, the first N % D one track longer, as
+    torch.tensor_split cuts them; a device with no track gets none); the
+    states gathered back on the batch's device."""
+    lengths = cuda_lib.host_lengths(lengths, batch.shape[0], batch.shape[1])
+    devices = mesh.axis_devices("data")
+    outs = []
+    for dev, idx in zip(devices, np.array_split(np.arange(batch.shape[0]), len(devices))):
+        if len(idx):
+            share = slice(int(idx[0]), int(idx[-1]) + 1)
+            with on_device(dev):
+                outs.append(decode(batch[share].to(dev), lengths[share]).to(batch.device))
+    return torch.cat(outs, dim=0)
+
+
 def viterbi_decode_batch_logobs(
-    *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths
+    *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths, mesh=None
 ) -> torch.Tensor:
     """Decode a [N, T, S] batch of LOG observations (unvoiced state last)
     with per-track lengths. Returns states [N, T] int32 on log_obs's
-    device; entries at or beyond each track's length are unspecified."""
+    device; entries at or beyond each track's length are unspecified. With
+    `mesh`, each "data" device decodes its share of the tracks."""
+    if mesh is not None:
+        return decode_over_data(mesh, log_obs, lengths, lambda x, lens: viterbi_decode_batch_logobs(
+            transition_matrix=transition_matrix, prob_init=prob_init, log_obs=x, lengths=lens))
     S = np.asarray(transition_matrix).shape[0]
     N, T, S_obs = log_obs.shape
     if S_obs != S:
@@ -177,11 +327,12 @@ def viterbi_decode_batch_logobs(
 
 
 def viterbi_decode_batch(
-    *, transition_matrix, prob_init, probs_st_list, device=None
+    *, transition_matrix, prob_init, probs_st_list, device=None, mesh=None
 ) -> list[np.ndarray]:
     """Decode a list of [S, T_i] observation-probability tracks together
     (numpy arrays or tensors). Returns [T_i] int64 state paths, bit-identical
-    to the NumPy oracle given the same log observations."""
+    to the NumPy oracle given the same log observations. With `mesh`, each
+    "data" device decodes its share of the tracks."""
     dev = resolve_device(device)
     S = np.asarray(transition_matrix).shape[0]
     lengths = [int(p.shape[1]) for p in probs_st_list]
@@ -190,22 +341,27 @@ def viterbi_decode_batch(
         obs[i, : lengths[i]] = torch.as_tensor(p, dtype=torch.float32).to(dev).T
     states = viterbi_decode_batch_logobs(
         transition_matrix=transition_matrix, prob_init=prob_init,
-        log_obs=log_obs_fn(obs), lengths=lengths,
+        log_obs=log_obs_fn(obs), lengths=lengths, mesh=mesh,
     ).cpu().numpy()
     return [states[i, :L].astype(np.int64) for i, L in enumerate(lengths)]
 
 
 def viterbi_decode_batch_fused_obs(
-    *, transition_matrix, prob_init, logits: torch.Tensor, lengths, obs: dict
+    *, transition_matrix, prob_init, logits: torch.Tensor, lengths, obs: dict, mesh=None
 ) -> torch.Tensor:
     """Decode a [N, T, n_bins] batch of RAW logits with per-track lengths
-    (counterpart of viterbi_decode_batch_pallas_fused_obs, without `mesh`).
+    (counterpart of viterbi_decode_batch_pallas_fused_obs; with `mesh`, each
+    "data" device runs this on its share of the tracks).
     obs: the JAX package's obs dict (hmm/obs_fused.py::obs_params). With a
     banded structure: K9, the first-max argmax, then K2 (K4 when the
     structure has no classes); without: K5/K6, then
     viterbi_decode_batch_logobs (K3/K4). Returns states [N, T] int32 on
     the logits' device; entries at or beyond each track's length are
     unspecified."""
+    if mesh is not None:
+        return decode_over_data(mesh, logits, lengths, lambda x, lens: viterbi_decode_batch_fused_obs(
+            transition_matrix=transition_matrix, prob_init=prob_init, logits=x,
+            lengths=lens, obs=obs))
     S = np.asarray(transition_matrix).shape[0]
     if logits.shape[-1] + 1 != S:
         raise ValueError(f"logits have {logits.shape[-1]} bins, the matrix {S} states")

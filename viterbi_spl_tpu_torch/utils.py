@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,10 @@ def resolve_device(device=None) -> torch.device:
             "on the CPU"
         )
     return dev
+
+
+def on_device(device: torch.device):
+    """A context that makes `device` the current CUDA device (a kernel
+    launches on the current device's stream); nothing for the CPU."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
