@@ -3,7 +3,14 @@ csrc/, holds each against its plain PyTorch version and the NumPy oracle,
 drives the decode service and its fused serving path end to end through
 their entry points, and times the kernels at full width.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
+
+--baseline DIR: a tree of an earlier commit of this repo (for example
+`git archive <commit> | tar -x -C runs/base`); its
+viterbi_spl_tpu_torch/csrc/viterbi_dense.cu, which held K7/K8 before they
+moved to csrc/viterbi_window.cu, is built under a scratch name in the build
+directory, and phase 4c times its K7/K8 in turns with this tree's (old, new,
+new, old) as K7_pr3_ms / K8_pr3_ms. Without it those keys are null.
 
 Phases (one JSON line each):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, build time.
@@ -41,12 +48,21 @@ Phases (one JSON line each):
      ms and frames/s of K5 alone, K6 (scaled) alone, K5 -> K1 -> argmax ->
      K2, K9 -> K2, and the default path (the PyTorch observation model, the
      log, then K1/K2); track 0 against the oracle on K5's log observations.
-  4c. the single-track kernels: K7 and K8 alone and the single-track decode
-     on the 32768-frame tonet track, the time-sharded decode's ms per halo
-     attempt against it, and the single-track decode at imm 722, T=4096.
+  4c. the single-track kernels: K7 and K8 alone (us per frame and per step,
+     K7's cluster size) and the single-track decode on the 32768-frame
+     tonet track, the time-sharded decode's ms per halo attempt against it,
+     and the single-track decode at imm 722, T=4096; with --baseline, the
+     earlier K7/K8 in turns with these on the same inputs, and equal to
+     them.
+  4d. each kernel at the shapes of the launches the kernels line counts,
+     one timing per counted launch: K1/K2 on the CLI's batch, K3/K4 on the
+     imm DecoderSetup's, K5/K6 on the fused CLI's and DecoderSetup's logits,
+     K9 on the fused decode API's batch, K7/K8 over the time-sharded
+     decode's windows at each halo it tried and the seam-stress fixture's;
+     the sum of those times and of their bounds.
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
-     bounds it.
+     bounds it (and the phase 4d sums).
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -54,6 +70,8 @@ without CUDA.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -109,9 +127,9 @@ KERNEL_INFO = {
            "viterbi_spl_tpu/hmm/obs_pallas.py:320"),
     "K6": ("softmax_log_obs", "viterbi_spl_tpu_torch/csrc/obs.cu",
            "viterbi_spl_tpu/hmm/obs_pallas.py:239"),
-    "K7": ("window_forward", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
+    "K7": ("window_forward", "viterbi_spl_tpu_torch/csrc/viterbi_window.cu",
            "viterbi_spl_tpu/hmm/viterbi_pallas.py:238"),
-    "K8": ("window_backtrace", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
+    "K8": ("window_backtrace", "viterbi_spl_tpu_torch/csrc/viterbi_window.cu",
            "viterbi_spl_tpu/hmm/viterbi_pallas.py:303"),
     "K9": ("banded_forward_obs", "viterbi_spl_tpu_torch/csrc/viterbi_banded.cu",
            "viterbi_spl_tpu/hmm/viterbi_banded.py:467"),
@@ -1023,28 +1041,94 @@ def phase_serving(dev) -> dict:
     return results
 
 
-def phase_seq_timing(dev, seq) -> dict:
+def build_baseline(tree: Path | None):
+    """(K7, K8) of an earlier tree's csrc/viterbi_dense.cu (where K7 read
+    the transposed table logA and K8 chased with a warp per window), built with
+    the port's flags under a scratch name in the build directory; None
+    without a tree. Each takes and returns what VD.window_forward /
+    VD.window_backtrace do, on tensors on the card."""
+    if tree is None:
+        return None
+    src = Path(tree) / "viterbi_spl_tpu_torch" / "csrc" / "viterbi_dense.cu"
+    out = cuda_lib.BUILD_DIR / "libviterbi_dense_baseline.so"
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(out), str(src)],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    lib.vspl_window_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.vspl_window_backtrace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    P = cuda_lib.ptr
+
+    def k7(log_B, log_pi, log_obs, lengths, resets):
+        N, W, S = log_obs.shape
+        dev = log_obs.device
+        log_A = log_B.t().contiguous()
+        lens, rst = (torch.as_tensor(np.asarray(x, np.int32), device=dev) for x in (lengths, resets))
+        t1m1 = torch.empty_like(log_obs)
+        t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
+        check(lib.vspl_window_forward(P(log_obs), P(log_A), P(log_pi), P(lens), P(rst), P(t1m1),
+                                      P(t1_last), N, W, S, cuda_lib.stream_ptr(dev)) == 0,
+              "baseline K7 launched")
+        return t1_last, t1m1
+
+    def k8(log_B, t1m1, start, lengths):
+        N, W, S = t1m1.shape
+        dev = t1m1.device
+        lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+        st = torch.as_tensor(start).to(dev, torch.int32).reshape(N).contiguous()
+        states = torch.empty((N, W), dtype=torch.int32, device=dev)
+        check(lib.vspl_window_backtrace(P(t1m1), P(log_B), P(st), P(lens), P(states), N, W, S,
+                                        cuda_lib.stream_ptr(dev)) == 0, "baseline K8 launched")
+        return states
+
+    return k7, k8
+
+
+def in_turns(new, old, iters):
+    """(ms of new, ms of old or None): with old, timed old, new, new, old and
+    each the mean of its two readings; else new once."""
+    if old is None:
+        return cuda_ms(new, iters), None
+    o1, n1, n2, o2 = (cuda_ms(f, iters) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def phase_seq_timing(dev, seq, baseline) -> dict:
     """K7 and K8 alone and the single-track decode K7 -> argmax -> K8 on the
     32768-frame tonet track of phase 3c and on an imm 722 track of 4096
     frames (uniform log observations); on the tonet track also the
     time-sharded decode: K7 and K8 over its 8 windows at the final halo
     (one launch each), one halo attempt (windows, K7, argmax, K8 and the
     certificate) at each halo the certified decode tried, and the
-    certified decode from halo 64."""
+    certified decode from halo 64. With a baseline (build_baseline), its
+    K7/K8 in turns with these on the same inputs, required to give the same
+    t1_last, t1m1 and states."""
     T_PLAIN = 32
     imm_A = hmm_params.imm_transition_matrix(20, 721)
     cases = [("tonet 361 track", seq["A"], seq["pi"], seq["log_obs"]),
              ("imm 722 track", imm_A, np.full(722, 1.0 / 722),
               uniform_log_obs(1, 4096, 722, seed=9, dev=dev)[0])]
+    old_k7, old_k8 = baseline or (None, None)
     results = {}
     for label, A, pi, log_obs in cases:
         T, S = log_obs.shape
         log_B, log_pi = (torch.from_numpy(x).to(dev) for x in prepare_log_params(A, pi))
-        out = {}
-        ms_f = cuda_ms(lambda: out.update(f=VD.viterbi_forward(log_B, log_pi, log_obs, T)), 5)
-        t1_last, t1m1 = out.pop("f")
+        one, zero = np.array([T], np.int32), np.zeros(1, np.int32)
+        t1_last, t1m1 = VD.viterbi_forward(log_B, log_pi, log_obs, T)
         last = torch.argmax(t1_last)
-        ms_b = cuda_ms(lambda: VD.viterbi_backtrace(t1m1, log_B, last, T), 5)
+        if baseline:
+            o_t1, o_m = old_k7(log_B, log_pi, log_obs[None], one, zero)
+            o_st = old_k8(log_B, t1m1[None], last.reshape(1), one)
+            new_st = VD.viterbi_backtrace(t1m1, log_B, last, T)
+            check(torch.equal(o_t1[0], t1_last) and torch.equal(o_m[0], t1m1)
+                  and torch.equal(o_st[0], new_st), f"{label}: the baseline's K7/K8 give the same results")
+            del o_m
+        ms_f, ms_f_old = in_turns(
+            lambda: VD.viterbi_forward(log_B, log_pi, log_obs, T),
+            old_k7 and (lambda: old_k7(log_B, log_pi, log_obs[None], one, zero)), 5)
+        ms_b, ms_b_old = in_turns(
+            lambda: VD.viterbi_backtrace(t1m1, log_B, last, T),
+            old_k8 and (lambda: old_k8(log_B, t1m1[None], last.reshape(1), one)), 5)
         del t1m1
 
         def decode():
@@ -1053,27 +1137,33 @@ def phase_seq_timing(dev, seq) -> dict:
 
         ms_dec = cuda_ms(decode, 5)
         short = log_obs[None, :T_PLAIN].contiguous()
-        one, zero = np.array([T_PLAIN], np.int32), np.zeros(1, np.int32)
+        t_one = np.array([T_PLAIN], np.int32)
         res = {}
         ms_fp = cuda_ms(lambda: res.update(f=VD.window_forward_plain(
-            log_B, log_pi, short, one, zero)), 1) * T / T_PLAIN
+            log_B, log_pi, short, t_one, zero)), 1) * T / T_PLAIN
         t1_s, rows_s = res["f"]
         start = torch.argmax(t1_s, dim=1)
-        ms_bp = cuda_ms(lambda: VD.window_backtrace_plain(log_B, rows_s, start, one), 1) * T / T_PLAIN
+        ms_bp = cuda_ms(lambda: VD.window_backtrace_plain(log_B, rows_s, start, t_one), 1) * T / T_PLAIN
         bf, bb = bounds("K7", S, [T]), bounds("K8", S, [T])
         rec = {"phase": "timing", "shape": label, "N": 1, "T": T, "S": S,
                "decode_ms": ms_dec, "frames_per_s": T / (ms_dec / 1e3),
                "K7_ms": ms_f, "K8_ms": ms_b, "K7_plain_ms": ms_fp, "K8_plain_ms": ms_bp,
+               "K7_us_per_frame": 1e3 * ms_f / T, "K8_us_per_step": 1e3 * ms_b / (T - 1),
+               "K7_cluster_blocks": VD.window_cluster_size(S),
+               "K7_pr3_ms": ms_f_old, "K8_pr3_ms": ms_b_old,
                "K7_bound_ms": bf[0], "K7_bound_by": bf[1],
                "K8_bound_ms": bb[0], "K8_bound_by": bb[1], "plain_T": T_PLAIN}
         if label.startswith("tonet"):
             H = seq["halo"]
             windows, lengths, resets = block_windows(log_obs, H)
-            ms_wf = cuda_ms(lambda: out.update(f=VD.window_forward(
-                log_B, log_pi, windows, lengths, resets)), 5)
-            t1_w, m_w = out.pop("f")
+            t1_w, m_w = VD.window_forward(log_B, log_pi, windows, lengths, resets)
             st = torch.argmax(t1_w, dim=1)
-            ms_wb = cuda_ms(lambda: VD.window_backtrace(log_B, m_w, st, lengths), 5)
+            ms_wf, ms_wf_old = in_turns(
+                lambda: VD.window_forward(log_B, log_pi, windows, lengths, resets),
+                old_k7 and (lambda: old_k7(log_B, log_pi, windows, lengths, resets)), 5)
+            ms_wb, ms_wb_old = in_turns(
+                lambda: VD.window_backtrace(log_B, m_w, st, lengths),
+                old_k8 and (lambda: old_k8(log_B, m_w, st, lengths)), 5)
             del m_w, windows
             ms_attempt = {h: cuda_ms(lambda: viterbi_sharded_time_blocks(
                 log_B, log_pi, log_obs, seq["mesh"], halo=h), 5)
@@ -1083,6 +1173,7 @@ def phase_seq_timing(dev, seq) -> dict:
             wf, wb = bounds("K7", S, lengths), bounds("K8", S, lengths)
             rec.update({"halo": H, "blocks": SEQ_BLOCKS,
                         "K7_windows_ms": ms_wf, "K8_windows_ms": ms_wb,
+                        "K7_windows_pr3_ms": ms_wf_old, "K8_windows_pr3_ms": ms_wb_old,
                         "K7_windows_bound_ms": wf[0], "K8_windows_bound_ms": wb[0],
                         "time_sharded_ms_per_halo_attempt": {int(h): ms for h, ms in ms_attempt.items()},
                         "time_sharded_decode_ms": ms_auto,
@@ -1093,7 +1184,89 @@ def phase_seq_timing(dev, seq) -> dict:
     return results
 
 
-def main() -> int:
+def phase_path_shapes(dev, ctx, seq) -> dict:
+    """One timing per launch that the kernels line counts, at the shape that
+    launch had, with its bound: {kernel: {"shapes": [...], "ms_sum",
+    "bound_ms_sum"}}. What a kernel costs the main path is ms_sum -
+    bound_ms_sum."""
+    per = {k: [] for k in KERNEL_INFO}
+
+    def add(k, label, ms, b):
+        per[k].append({"shape": label, "ms": ms, "bound_ms": b[0], "bound_by": b[1]})
+
+    def argmax(t1):
+        return torch.argmax(t1, dim=1).to(torch.int32)
+
+    # K1/K2: the CLI's batch, once per method; K3/K4: the imm DecoderSetup's
+    for kind, st, lgs, n in (("banded", ctx["cli_setups"]["shaun"], ctx["cli_logits"], 3),
+                             ("dense", ctx["imm_setup"], ctx["imm_logits"], 1)):
+        log_obs, lengths = padded_log_obs(st, lgs)
+        (fwd, bt, _, _), _, _ = kernel_pair(kind, st.transition_matrix, st.init_probs, log_obs, lengths)
+        bs = VB.extract_banded_structure(st.transition_matrix) if kind == "banded" else None
+        kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
+        S, label = log_obs.shape[2], f"{kind} main path N={len(lengths)} T={log_obs.shape[1]}"
+        out = {}
+        ms_f = cuda_ms(lambda: out.update(f=fwd(log_obs, lengths)), 5)
+        t1, rows = out.pop("f")
+        ms_b = cuda_ms(lambda: bt(rows, argmax(t1), lengths), 5)
+        for _ in range(n):
+            add(kf, label, ms_f, bounds(kf, S, lengths, bs))
+            add(kb, label, ms_b, bounds(kb, S, lengths, bs))
+    # K5/K6: the fused CLI's logits for each method, K5 also the imm
+    # DecoderSetup's; K9: the fused decode API on the CLI's batch
+    for lgs, setups in ((ctx["cli_logits"], [ctx["cli_setups"][m] for m in METHODS]),
+                        (ctx["imm_logits"], [ctx["imm_setup"]])):
+        lengths = np.array([lg.shape[0] for lg in lgs], np.int32)
+        staged = np.zeros((len(lgs), lengths.max(), lgs[0].shape[1]), np.float32)
+        for i, lg in enumerate(lgs):
+            staged[i, : lengths[i]] = lg
+        batch = torch.from_numpy(staged).to(dev)
+        N, T, n_bins = batch.shape
+        in_len = torch.as_tensor(np.arange(T)[None, :] < lengths[:, None], device=dev)
+        for st in setups:
+            obs = st.obs_config()
+            softmax = obs["method"] != "shaun"
+            peaks = OF._peaks(batch, obs["spw"])
+            label = f"{obs['method']} N={N} T={T} bins={n_bins}"
+            add("K6" if softmax else "K5", label, cuda_ms(lambda: OF.log_obs(batch, obs), 5),
+                bound(*obs_work(n_bins, obs["spw"], N * T, int(peaks.sum()), softmax)))
+            bs = VB.extract_banded_structure(st.transition_matrix)
+            if bs is not None:
+                _, log_pi = prepare_log_params(st.transition_matrix, st.init_probs)
+                o_bytes, o_ops = obs_work(n_bins, obs["spw"], int(lengths.sum()),
+                                          int((peaks & in_len[..., None]).sum()), softmax)
+                add("K9", label, cuda_ms(lambda: VB.banded_forward_obs(
+                    bs, log_pi, batch, lengths, obs), 5),
+                    bound(o_bytes, work("K1", n_bins + 1, lengths, bs)[1] + o_ops))
+            del peaks
+    # K7/K8: the time-sharded decode's windows at each halo it tried, then
+    # the seam-stress fixture's at halos 16, 32 and 64
+    A_s, pi_s, obs_s, _ = make_seam_stress_hmm(SEQ_BLOCKS)
+    tries = [(seq["A"], seq["pi"], seq["log_obs"], int(h)) for h in
+             SEQ_HALO * 2 ** np.arange(int(np.log2(seq["halo"] // SEQ_HALO)) + 1)]
+    tries += [(A_s, pi_s, log_obs_fn(torch.from_numpy(obs_s).to(dev)), h) for h in (16, 32, 64)]
+    for A, pi, log_obs, H in tries:
+        log_B, log_pi = (torch.from_numpy(x).to(dev) for x in prepare_log_params(A, pi))
+        windows, lengths, resets = block_windows(log_obs, H)
+        S, label = A.shape[0], f"{SEQ_BLOCKS} windows W={windows.shape[1]} S={A.shape[0]} halo {H}"
+        out = {}
+        add("K7", label, cuda_ms(lambda: out.update(f=VD.window_forward(
+            log_B, log_pi, windows, lengths, resets)), 5), bounds("K7", S, lengths))
+        t1, rows = out.pop("f")
+        add("K8", label, cuda_ms(lambda: VD.window_backtrace(log_B, rows, argmax(t1), lengths), 5),
+            bounds("K8", S, lengths))
+    torch.cuda.empty_cache()
+    res = {k: {"launches_timed": len(v), "ms_sum": sum(e["ms"] for e in v),
+               "bound_ms_sum": sum(e["bound_ms"] for e in v), "shapes": v} for k, v in per.items()}
+    emit({"phase": "path_shapes", **res})
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="tree of an earlier commit whose K7/K8 phase 4c times beside these")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1130,7 +1303,10 @@ def main() -> int:
     phase_streaming(dev)
     timing = phase_timing(dev, full_width_shapes())
     timing.update(phase_serving(dev))
-    timing.update(phase_seq_timing(dev, seq))
+    timing.update(phase_seq_timing(dev, seq, build_baseline(args.baseline)))
+    path = phase_path_shapes(dev, ctx, seq)
+    check(all(path[k]["launches_timed"] == launches[k] for k in KERNEL_INFO),
+          f"phase 4d timed one launch per counted launch: {launches}")
 
     headline = {"K1": "tonet 361", "K2": "tonet 361", "K3": "imm 722", "K4": "imm 722",
                 "K5": "tonet 361 serving", "K6": "tonet 361 serving", "K9": "tonet 361 serving",
@@ -1147,6 +1323,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[k], "max_abs_err": errs[k],
             **entry(main_rec), "library_ms": None,
             "launches_on_fused_path": fused_launches[k],
+            "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "other_shapes": [entry(r) for lbl, r in timing.items()
                              if lbl != headline[k] and f"{k}_ms" in r],
         })

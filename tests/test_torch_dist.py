@@ -108,6 +108,49 @@ def test_window_kernels_plain_match_pallas(rng, S):
         np.testing.assert_array_equal(states_t[n, :T], np.asarray(st_j)[:T])
 
 
+def _chase(bp, start, lengths):
+    """s_{t-1} = bp[n, t, s_t] from start[n] at frame lengths[n] - 1."""
+    states = np.zeros(bp.shape[:2], np.int32)
+    for n, T in enumerate(lengths):
+        s = int(start[n])
+        states[n, T - 1] = s
+        for t in range(T - 1, 0, -1):
+            s = int(bp[n, t, s])
+            states[n, t - 1] = s
+    return states
+
+
+@pytest.mark.parametrize("S", [33, 361])
+def test_backpointer_pass_then_chase_matches_plain_and_pallas(rng, S):
+    """K8's design on the card, in its plain version: every backpointer of
+    every window (window_backpointers_plain), then a chase over them, gives
+    window_backtrace_plain's states and viterbi_backtrace_pallas's
+    (interpreted) below each length, with ragged windows, reset rows 0, -1
+    and mid-window, and a tie-heavy window (uniform observations)."""
+    W, H = 48, 16
+    A, pi, _ = random_hmm(rng, S, 4)
+    log_B, log_pi = prepare_log_params(A, pi)
+    P = -(-S // LANE) * LANE
+    jB, jpi = (jnp.asarray(x) for x in jax_log_params(A, pi, pad_to=P))
+    cases = [(W, 0), (W, -1), (37, H), (2, 0), (1, 0), (W - 3, 0)]
+    lengths = np.array([T for T, _ in cases], np.int32)
+    resets = np.array([r for _, r in cases], np.int32)
+    log_obs = np.stack([_log(random_hmm(rng, S, W)[2].T) for _ in cases])
+    log_obs[-1] = _log(np.full((W, S), 1.0 / S, np.float32))
+    t1, t1m1 = TVD.window_forward(log_B, log_pi, torch.from_numpy(log_obs), lengths, resets)
+    start = torch.argmax(t1, dim=1)
+    bp = TVD.window_backpointers_plain(torch.from_numpy(log_B), t1m1, lengths)
+    assert bp.dtype == torch.int32 and bp.shape == (len(cases), W, S)
+    got = _chase(bp.numpy(), start.numpy(), lengths)
+    want = TVD.window_backtrace_plain(torch.from_numpy(log_B), t1m1, start, lengths).numpy()
+    for n, (T, r) in enumerate(cases):
+        np.testing.assert_array_equal(got[n, :T], want[n, :T])
+        _, t1m1_j = viterbi_forward_pallas(jB, jpi, jnp.asarray(_lane_padded(log_obs[n], P)),
+                                           T, r, block_frames=16)
+        st_j = viterbi_backtrace_pallas(t1m1_j, jB, int(start[n]), T, block_frames=16)
+        np.testing.assert_array_equal(got[n, :T], np.asarray(st_j)[:T])
+
+
 @pytest.mark.parametrize("S,T", [(45, 100), (361, 40)])
 def test_single_track_decode_matches_pallas_and_oracle(rng, S, T):
     A, pi, obs = random_hmm(rng, S, T, sparse_obs=True)

@@ -3,7 +3,8 @@ with exact equality of t1_last, of t1m1 up to each track's length, and of
 the decoded states, with ragged lengths and N not a multiple of 8; K5/K6
 under the observation contract (hmm/obs_fused.py::obs_contract); K9
 bit-equal to K5/K6 -> K1; K7/K8 (the window kernels) exactly, with reset
-rows, and the time-block decode's launches over a mesh of blocks on one
+rows, at 8- and 16-block cluster sizes and over more windows than one wave
+holds, and the time-block decode's launches over a mesh of blocks on one
 card.
 
 Every test here needs a CUDA card and skips without one. The file imports
@@ -252,6 +253,48 @@ def test_cuda_k7_k8_match_plain(cuda, rng, S):
     np.testing.assert_array_equal(
         st_k[0].cpu().numpy(), viterbi_oracle_log(log_B, log_pi, log_obs[0].numpy())
     )
+
+
+def _window_case(rng, S):
+    """(A, pi) for the window kernels at S states: tonet's shaped matrix at
+    361, imm's analytic one at 722, else a seeded random dense matrix."""
+    if S == 722:
+        return TP.imm_transition_matrix(20, 721), np.full(S, 1.0 / S)
+    if S == 361:
+        return _shaped(rng, 360, 14)
+    A = rng.random((S, S)).astype(np.float32) ** 4
+    return A / A.sum(1, keepdims=True), np.full(S, 1.0 / S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [61, 200, 361, 400, 722])
+def test_cuda_k7_k8_many_windows_match_plain(cuda, rng, S):
+    """K7/K8 over 12 ragged windows in one launch each: more clusters than
+    fit in one wave at 722 states (16-block clusters), 8-block clusters up
+    to 384 states and fewer blocks where a small S leaves a block without a
+    target; lengths 1, 2 and the full window; reset rows 0, -1, 1 and
+    mid-window; the tie-heavy windows of _log_obs. Exact t1_last, t1m1 up
+    to each length and states; each window with reset row 0 against the
+    oracle."""
+    A, pi = _window_case(rng, S)
+    log_B, log_pi = prepare_log_params(A, pi)
+    lengths = np.array([300, 1, 2, 300, 177, 2, 300, 64, 299, 5, 250, 300], np.int32)
+    resets = np.minimum(np.array([0, 0, 1, -1, 90, -1, 150, 0, 0, 4, -1, 0], np.int32),
+                        lengths - 1)
+    log_obs = _log_obs(rng, len(lengths), 300, S)
+    lB, lpi = torch.from_numpy(log_B), torch.from_numpy(log_pi)
+    t1_p, t1m1_p = TD.window_forward_plain(lB, lpi, log_obs, lengths, resets)
+    t1_k, t1m1_k = TD.window_forward(log_B, log_pi, log_obs.to(cuda), lengths, resets)
+    start = torch.argmax(t1_p, dim=1)
+    st_p = TD.window_backtrace_plain(lB, t1m1_p, start, lengths)
+    st_k = TD.window_backtrace(log_B, t1m1_k, start.to(cuda), lengths)
+    torch.cuda.synchronize()
+    _check(t1_k, t1m1_k, st_k, t1_p, t1m1_p, st_p, lengths)
+    for n in np.flatnonzero(resets == 0):
+        L = int(lengths[n])
+        np.testing.assert_array_equal(
+            st_k[n, :L].cpu().numpy(), viterbi_oracle_log(log_B, log_pi, log_obs[n, :L].numpy())
+        )
 
 
 @pytest.mark.gpu

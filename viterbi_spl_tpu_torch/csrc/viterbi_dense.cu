@@ -1,15 +1,11 @@
 // K3 and K4: the dense batched Viterbi forward DP and backtrace for Hopper
 // (sm_90a), for transition matrices without the banded structure (imm's
-// analytic matrix, arbitrary matrices); K7 and K8: the same DP and chase
-// over windows of one track, as the sequence-parallel decode cuts them.
+// analytic matrix, arbitrary matrices). The single-track kernels over
+// windows (K7, K8) are in viterbi_window.cu.
 //
 // K3 replaces viterbi_spl_tpu/hmm/viterbi_pallas.py::_forward_kernel_batch
 // (pallas_call at viterbi_pallas.py:507). K4 replaces
-// viterbi_pallas.py::_backtrace_kernel_batch (pallas_call at :558). K7
-// replaces viterbi_pallas.py::_forward_kernel (pallas_call at :238), the
-// single-track forward with a reset row; K8 replaces
-// viterbi_pallas.py::_backtrace_kernel (pallas_call at :303), the
-// single-track chase from a given last state.
+// viterbi_pallas.py::_backtrace_kernel_batch (pallas_call at :558).
 //
 //   T1[t][s] = max_{s'} (T1[t-1][s'] + logB[s, s']) + log_obs[t][s]
 //
@@ -34,16 +30,6 @@
 // memory, and stores its new values into every block's copy of the carry
 // row through distributed shared memory; one cluster barrier per frame.
 //
-// K7 is K3's DP body (the template flag kReset) with the reset rule of the
-// single-track TPU kernel: frame 0 starts from log_pi + obs when the
-// window's reset row is 0 and from obs alone (a cold, uniform max-plus
-// start) otherwise, and at frame t == reset row the carry restarts from
-// log_pi + obs[t], overriding the DP step. One cluster runs one window, and
-// the window's length, reset row and start state are read per window, so
-// one launch runs every time block a device holds. It is bound as K3 is:
-// 2 S^2 FP32 operations per frame against 8 S bytes, through a chain of
-// dependent frames; only adds and maxima (no FMA contraction, no fast math).
-//
 // K4 is a chain of T dependent argmax steps per track; each reads one
 // t1m1 row (staged VSPL_RING steps ahead in a shared-memory ring, as in the
 // banded backtrace) and one logB row chosen by the current state (an L2
@@ -63,21 +49,18 @@ extern "C" const char* vspl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One cluster of VSPL_DENSE_CLUSTER blocks per track (K3) or window (K7,
-// kReset). Block `rank` owns the
+// One cluster of VSPL_DENSE_CLUSTER blocks per track. Block `rank` owns the
 // targets [rank * chunk, (rank + 1) * chunk); its threads are (tx, g):
 // target base + tx, and the g-th of `groups` contiguous source ranges. Every
 // block keeps the whole carry row, double-buffered in shared memory; each
 // new value is stored into every block's next row (distributed shared
 // memory), and one cluster barrier per frame publishes the row.
-template <bool kReset>
 __global__ void __cluster_dims__(VSPL_DENSE_CLUSTER, 1, 1) __launch_bounds__(1024)
     dense_forward_kernel(
         const float* __restrict__ log_obs,   // [N, T, S]
         const float* __restrict__ logA,      // [S, S]: logA[s'][s] = logB[s][s']
         const float* __restrict__ log_pi,    // [S]
         const int* __restrict__ lengths,     // [N], 1 <= len <= T
-        const int* __restrict__ reset_rows,  // [N], -1 <= row < len (kReset only)
         float* __restrict__ t1m1,            // [N, T, S]
         float* __restrict__ t1_last,         // [N, S]
         int T, int S, int chunk, int groups) {
@@ -93,7 +76,6 @@ __global__ void __cluster_dims__(VSPL_DENSE_CLUSTER, 1, 1) __launch_bounds__(102
   const int s = rank * chunk + tx;
   const bool owner = g == 0 && tx < chunk && s < S;  // writes target s
   const int len = lengths[track];
-  const int reset = kReset ? reset_rows[track] : 0;
   const size_t base = static_cast<size_t>(track) * T * S;
   const float* obs = log_obs + base;
   float* out = t1m1 + base;
@@ -106,8 +88,7 @@ __global__ void __cluster_dims__(VSPL_DENSE_CLUSTER, 1, 1) __launch_bounds__(102
   cluster.sync();  // every block of the cluster has started
   float cur = 0.0f;
   if (owner) {
-    // K3, and K7 with reset row 0: log_pi + obs; K7 otherwise: a cold start
-    cur = reset == 0 ? lpi + obs[s] : obs[s];
+    cur = lpi + obs[s];
     out[s] = 0.0f;
     for (int r = 0; r < VSPL_DENSE_CLUSTER; ++r) cluster.map_shared_rank(buf, r)[s] = cur;
   }
@@ -133,7 +114,7 @@ __global__ void __cluster_dims__(VSPL_DENSE_CLUSTER, 1, 1) __launch_bounds__(102
     if (owner) {
       float m = part[tx];
       for (int h = 1; h < groups; ++h) m = fmaxf(m, part[h * tx_n + tx]);
-      const float nv = (kReset && t == reset) ? lpi + obs_t : m + obs_t;
+      const float nv = m + obs_t;
       out[static_cast<size_t>(t) * S + s] = prev[s];
       for (int r = 0; r < VSPL_DENSE_CLUSTER; ++r)
         cluster.map_shared_rank(buf, r)[(1 - p) * S + s] = nv;
@@ -147,8 +128,7 @@ __global__ void __cluster_dims__(VSPL_DENSE_CLUSTER, 1, 1) __launch_bounds__(102
   if (owner) t1_last[static_cast<size_t>(track) * S + s] = cur;
 }
 
-// The chase of one track (K4) or window (K8) by one warp, from its last
-// state at frame len - 1. kRegs: row values per lane, S <= 32 kRegs
+// The chase of one track by one warp, from its last state at frame len - 1. kRegs: row values per lane, S <= 32 kRegs
 // (VSPL_DISPATCH_ROW_REGS).
 template <int kRegs>
 __device__ __forceinline__ void dense_chase(
@@ -209,21 +189,9 @@ __global__ void __launch_bounds__(32) dense_backtrace_kernel(
   dense_chase<kRegs>(t1m1, logB, last_states, lengths, states, T, S, ring);
 }
 
-// K8: one warp per window, each from its own start state.
-template <int kRegs>
-__global__ void __launch_bounds__(32) window_backtrace_kernel(
-    const float* __restrict__ t1m1, const float* __restrict__ logB,
-    const int* __restrict__ start_states, const int* __restrict__ lengths,
-    int* __restrict__ states, int T, int S) {
-  extern __shared__ float ring[];
-  dense_chase<kRegs>(t1m1, logB, start_states, lengths, states, T, S, ring);
-}
-
-template <bool kReset>
 static int launch_dense_forward(const float* log_obs, const float* logA,
                                 const float* log_pi, const int* lengths,
-                                const int* reset_rows, float* t1m1,
-                                float* t1_last, int N, int T, int S,
+                                float* t1m1, float* t1_last, int N, int T, int S,
                                 void* stream) {
   // targets per block, rounded up to warps; the rest of the 1024 threads
   // split the sources
@@ -235,13 +203,13 @@ static int launch_dense_forward(const float* log_obs, const float* logA,
   const size_t smem = (2 * S + threads) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_forward_kernel<kReset>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dense_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  dense_forward_kernel<kReset><<<N * VSPL_DENSE_CLUSTER, threads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      log_obs, logA, log_pi, lengths, reset_rows, t1m1, t1_last, T, S, chunk, groups);
+  dense_forward_kernel<<<N * VSPL_DENSE_CLUSTER, threads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      log_obs, logA, log_pi, lengths, t1m1, t1_last, T, S, chunk, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,25 +218,15 @@ extern "C" int vspl_dense_forward(const float* log_obs, const float* logA,
                                   const float* log_pi, const int* lengths,
                                   float* t1m1, float* t1_last, int N, int T,
                                   int S, void* stream) {
-  return launch_dense_forward<false>(log_obs, logA, log_pi, lengths, nullptr,
-                                     t1m1, t1_last, N, T, S, stream);
+  return launch_dense_forward(log_obs, logA, log_pi, lengths, t1m1, t1_last, N, T, S,
+                              stream);
 }
 
-// K7: N windows of T rows, each with its length and reset row
-extern "C" int vspl_window_forward(const float* log_obs, const float* logA,
-                                   const float* log_pi, const int* lengths,
-                                   const int* reset_rows, float* t1m1,
-                                   float* t1_last, int N, int T, int S,
-                                   void* stream) {
-  return launch_dense_forward<true>(log_obs, logA, log_pi, lengths, reset_rows,
-                                    t1m1, t1_last, N, T, S, stream);
-}
-
-// K4 (kWindow false) or K8 (true), one warp per track or window.
-template <bool kWindow>
-static int launch_chase(const float* t1m1, const float* logB, const int* last_states,
-                        const int* lengths, int* states, int N, int T, int S,
-                        void* stream) {
+// K4: one warp per track.
+extern "C" int vspl_dense_backtrace(const float* t1m1, const float* logB,
+                                    const int* last_states, const int* lengths,
+                                    int* states, int N, int T, int S,
+                                    void* stream) {
   if (S > 32 * VSPL_ROW_REGS || N <= 0 || T <= 0) return cudaErrorInvalidValue;
   const size_t smem = vspl_ring_bytes(S);
   auto launch = [&](auto kernel) -> int {
@@ -281,24 +239,7 @@ static int launch_chase(const float* t1m1, const float* logB, const int* last_st
         t1m1, logB, last_states, lengths, states, T, S);
     return static_cast<int>(cudaGetLastError());
   };
-#define VSPL_LAUNCH(R) \
-  launch(kWindow ? window_backtrace_kernel<R> : dense_backtrace_kernel<R>)
+#define VSPL_LAUNCH(R) launch(dense_backtrace_kernel<R>)
   return VSPL_DISPATCH_ROW_REGS(S, VSPL_LAUNCH);
 #undef VSPL_LAUNCH
-}
-
-// K4
-extern "C" int vspl_dense_backtrace(const float* t1m1, const float* logB,
-                                    const int* last_states, const int* lengths,
-                                    int* states, int N, int T, int S,
-                                    void* stream) {
-  return launch_chase<false>(t1m1, logB, last_states, lengths, states, N, T, S, stream);
-}
-
-// K8: N windows of T rows, each chased from its start state at frame len - 1
-extern "C" int vspl_window_backtrace(const float* t1m1, const float* logB,
-                                     const int* start_states, const int* lengths,
-                                     int* states, int N, int T, int S,
-                                     void* stream) {
-  return launch_chase<true>(t1m1, logB, start_states, lengths, states, N, T, S, stream);
 }

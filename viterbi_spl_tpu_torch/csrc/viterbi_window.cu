@@ -1,0 +1,493 @@
+// K7 and K8 for Hopper (sm_90a): the dense forward DP and the chase over
+// windows of one track, as the single-track and sequence-parallel decodes
+// cut them. Each window has its own length, reset row and start state, and
+// one launch runs every window a device holds.
+//
+// K7 replaces viterbi_spl_tpu/hmm/viterbi_pallas.py::_forward_kernel
+// (pallas_call at viterbi_pallas.py:238): the single-track forward with a
+// reset row,
+//
+//   T1[t][s] = max_{s'} (T1[t-1][s'] + logB[s, s']) + log_obs[t][s],
+//
+// frame 0 from log_pi + obs when the reset row is 0 and from obs alone (a
+// cold start) otherwise, and at frame t == reset row the carry restarts from
+// log_pi + obs[t], overriding the DP step. It writes t1m1[t] = T1[t-1] (row 0
+// zeros) below each window's length and T1 at the window's last frame.
+//
+// What bounds K7: 2 S^2 FP32 operations per frame, through a chain of frames
+// that each depend on the whole previous row, so the time is the per-frame
+// chain: the candidates' adds and maxima, the reduction across the lanes
+// that share a target, the stores of the new values into every block of the
+// cluster, and the wait until a block holds the whole next row (measured at
+// 361 states: ~60 % the warps' issue from a row's arrival to their stores,
+// ~40 % the exchange; scripts/gpu_window_probe.py's clocked variant). The
+// design:
+//   * one thread-block cluster per window; cluster size from S by a fixed
+//     rule: 8 blocks for S <= 384, 16 (a non-portable cluster) for
+//     S <= 768, so that a block owns at most 48 targets; fewer blocks where
+//     a small S would leave a block without a target;
+//   * the block's slice of the table (its targets' rows of logB, 66 KB at
+//     361 states, 133 KB at 722) is read once per window, padded to
+//     64 kVec sources, and held on chip for the whole window: in registers,
+//     as float4s, 24 floats a thread at 361 states and 48 at 722. Reading it
+//     from shared memory every frame would move 66-141 KB of shared memory
+//     per frame (520-1,100 cycles at 128 bytes a clock), more than the rest
+//     of the frame; registers take no shared-memory bandwidth;
+//   * a warp owns two targets, each shared by 16 lanes that take interleaved
+//     float4 slots of the sources: the previous row is read as float4s, the
+//     16 lanes of a half reading 256 contiguous bytes (no bank conflict);
+//     four max chains a lane, then one redux.sync per target on
+//     order-preserving keys (exact, order-free);
+//   * no barrier per frame: lanes 0..C-1 of each half store the new value
+//     into block (lane)'s next carry row with st.async, which completes 4
+//     bytes of the transaction count on that block's mbarrier for the row;
+//     a block waits on its own mbarrier until all S values of the row have
+//     landed (a warp's two values in one 8-byte store, half the remote
+//     stores, measured no faster: scripts/gpu_window_probe.py). Two row
+//     buffers need no "consumed" barrier: a block can only
+//     receive row t+1 after every block sent row t, which each warp does
+//     only after it has read row t-1 (a warp whose targets are all padding
+//     sits the loop out). One cluster barrier at the start, one before
+//     exit, so that no block leaves while its shared memory can still be
+//     written;
+//   * observations through a 16-frame cp.async ring; only adds and maxima
+//     (no FMA contraction, no fast math): bit-equal to the plain version.
+//
+// K8 replaces viterbi_pallas.py::_backtrace_kernel (pallas_call at :303): from
+// start_states[n] at frame len - 1, s_{t-1} = first-argmax_x (t1m1[t][x] +
+// logB[s_t, x]). A chase that loads logB[s_t, :] has a load chosen by the
+// previous step on its chain, which no prefetch can hide (~0.65 us a step on
+// one warp). So K8 is two launches behind one entry:
+//   * the backpointer pass: bp[n, t, s] = first-argmax_x (t1m1[n, t, x] +
+//     logB[s, x]) for every frame 1 <= t < len and state s, a max-plus
+//     product with argmax tiled 64 frames x 64 states a block over the whole
+//     card; each thread keeps 4 x 4 (value, index) pairs and takes the
+//     sources in ascending order with a strict compare, so each bp is the
+//     first maximum, the chase's own argmax, bit for bit. It is bound by its
+//     operations: S^2 candidates a frame, four instructions each (add,
+//     compare, two selects), far above the least work of the chase;
+//   * the chase: one thread per window walks s = bp[t][s]; the bp rows do
+//     not depend on the state, so they arrive ahead in a ring of 16-row
+//     chunks, each one bulk copy (cp.async.bulk) completing on an mbarrier,
+//     and a step is one shared-memory load.
+
+#include <cooperative_groups.h>
+
+#include "viterbi_common.cuh"
+
+namespace cg = cooperative_groups;
+
+// Targets a block owns at most (two per warp).
+#define VSPL_WIN_CHUNK 48
+// Lanes that share one target's sources (a half warp).
+#define VSPL_WIN_LANES 16
+// Returned when no group of SMs can hold one cluster of the size S needs.
+#define VSPL_ERR_CLUSTER 10001
+
+// Backpointer pass tile: frames x states a block, sources a step.
+#define VSPL_BP_FT 64
+#define VSPL_BP_FS 64
+#define VSPL_BP_KX 32
+// bp rows a bulk copy of the chase brings.
+#define VSPL_CHASE_ROWS 16
+// Shared memory the chase's ring may take.
+#define VSPL_CHASE_RING_BYTES (200 * 1024)
+
+extern "C" const char* vspl_error_string(int code) {
+  if (code == VSPL_ERR_CLUSTER)
+    return "no group of SMs can hold one thread-block cluster of the size this state count needs";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+__device__ __forceinline__ unsigned vspl_smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared-memory location in cluster block `rank`.
+__device__ __forceinline__ unsigned vspl_map_rank(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(vspl_smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void vspl_mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` more of transactions in this phase.
+__device__ __forceinline__ void vspl_mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed; acquire at cluster
+// scope, so that the stores other blocks made into this block are visible.
+// A wait that outlasts 2^28 tries (minutes) traps, so that a broken
+// invariant fails the launch instead of hanging the card.
+__device__ __forceinline__ void vspl_mbar_wait(unsigned bar, unsigned parity) {
+  for (unsigned tries = 0;; ++tries) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// Stores v at `dst` in a cluster block's shared memory and completes 4 bytes
+// of the transaction count of that block's mbarrier `bar`.
+__device__ __forceinline__ void vspl_store_remote(unsigned dst, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+
+// One cluster per window. Block `rank` owns the targets [rank * chunk,
+// (rank + 1) * chunk); warp w the local targets 2w and 2w + 1, lane l the
+// target 2w + l / 16 and the float4 source slots (l % 16) + 16 k, k < kVec
+// (S <= 64 kVec). Shared memory: two mbarriers, the two carry rows [2][P]
+// (P = 64 kVec, padding at -inf) and the observation ring [VSPL_RING][2 warps].
+template <int kVec>
+__global__ void __launch_bounds__(32 * VSPL_WIN_CHUNK / 2, 1) window_forward_kernel(
+    const float* __restrict__ log_obs,   // [N, W, S]
+    const float* __restrict__ logB,      // [S, S]
+    const float* __restrict__ log_pi,    // [S]
+    const int* __restrict__ lengths,     // [N], 1 <= len <= W
+    const int* __restrict__ reset_rows,  // [N], -1 <= row < len
+    float* __restrict__ t1m1,            // [N, W, S]
+    float* __restrict__ t1_last,         // [N, S]
+    int W, int S, int chunk) {
+  constexpr int P = 64 * kVec;
+  extern __shared__ __align__(16) unsigned long long smem_u64[];
+  unsigned long long* bar = smem_u64;                          // [2]
+  float* rows = reinterpret_cast<float*>(smem_u64 + 2);         // [2][P]
+  float* ring = rows + 2 * P;                                   // [VSPL_RING][2 warps]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int win = blockIdx.x / C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane & (VSPL_WIN_LANES - 1);
+  const int j = 2 * warp + (lane >> 4);  // local target
+  const int s = rank * chunk + j;
+  const bool real = j < chunk && s < S;
+  const bool in_loop = rank * chunk + 2 * warp < S;  // the warp's first target is real
+  const bool sender = real && g < C;                 // sends target s to block g
+  const bool keeper = real && g == 0;                // stages obs, writes t1m1 and t1_last
+  const int ring_w = blockDim.x / 16;                // ring row: one slot per target
+  const int len = lengths[win];
+  const int reset = reset_rows[win];
+  const size_t base = static_cast<size_t>(win) * W * S;
+  const float* obs = log_obs + base;
+  float* out = t1m1 + base;
+  const unsigned row_bytes = static_cast<unsigned>(S) * 4u;
+
+  if (threadIdx.x == 0) {
+    vspl_mbar_init(vspl_smem_addr(&bar[0]), 1);
+    vspl_mbar_init(vspl_smem_addr(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < 2 * P; i += blockDim.x) rows[i] = -CUDART_INF_F;
+  // the table slice, once per window: padding sources add 0 to a -inf row
+  float4 tab[kVec];
+  const float* brow = logB + static_cast<size_t>(min(s, S - 1)) * S;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int x = 4 * (g + VSPL_WIN_LANES * k);
+    tab[k].x = x < S ? __ldg(brow + x) : 0.0f;
+    tab[k].y = x + 1 < S ? __ldg(brow + x + 1) : 0.0f;
+    tab[k].z = x + 2 < S ? __ldg(brow + x + 2) : 0.0f;
+    tab[k].w = x + 3 < S ? __ldg(brow + x + 3) : 0.0f;
+  }
+  // where this lane's stores go: row buffer 0 or 1 of block g, and its
+  // mbarrier (named registers: an array indexed by the frame would live in
+  // local memory)
+  unsigned row0 = 0u, row1 = 0u, bar0 = 0u, bar1 = 0u;
+  if (sender) {
+    row0 = vspl_map_rank(rows + s, g);
+    row1 = vspl_map_rank(rows + P + s, g);
+    bar0 = vspl_map_rank(&bar[0], g);
+    bar1 = vspl_map_rank(&bar[1], g);
+  }
+  const float lpi = real ? log_pi[s] : 0.0f;
+  for (int i = 0; i < VSPL_RING; ++i) {
+    const int f = 1 + i;
+    if (keeper) vspl_stage_one(ring + (f % VSPL_RING) * ring_w + j,
+                               obs + static_cast<size_t>(f) * S + s, f < len);
+    else vspl_commit_copies();
+  }
+  cluster.sync();  // every block's barriers and padding are in place
+  if (threadIdx.x == 0) {
+    vspl_mbar_expect(vspl_smem_addr(&bar[0]), row_bytes);
+    if (len > 1) vspl_mbar_expect(vspl_smem_addr(&bar[1]), row_bytes);
+  }
+  // frame 0: K7 with reset row 0, log_pi + obs; otherwise a cold start
+  float cur = 0.0f;
+  if (real) cur = reset == 0 ? lpi + obs[s] : obs[s];
+  if (sender) vspl_store_remote(row0, cur, bar0);
+  if (keeper) out[s] = 0.0f;
+
+  if (in_loop) {
+    for (int t = 1; t < len; ++t) {
+      const int r = t - 1, b = r & 1;  // row t - 1 is in buffer b
+      vspl_wait_oldest_row();          // frame t's observation (the keeper's copy)
+      __syncwarp();
+      const float obs_t = ring[(t % VSPL_RING) * ring_w + j];
+      vspl_mbar_wait(vspl_smem_addr(&bar[b]), (r >> 1) & 1);
+      if (threadIdx.x == 0 && r + 2 < len) vspl_mbar_expect(vspl_smem_addr(&bar[b]), row_bytes);
+      const float4* prev = reinterpret_cast<const float4*>(rows + b * P);
+      float a0 = -CUDART_INF_F, a1 = -CUDART_INF_F, a2 = -CUDART_INF_F, a3 = -CUDART_INF_F;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float4 v = prev[g + VSPL_WIN_LANES * k];
+        a0 = fmaxf(a0, v.x + tab[k].x);
+        a1 = fmaxf(a1, v.y + tab[k].y);
+        a2 = fmaxf(a2, v.z + tab[k].z);
+        a3 = fmaxf(a3, v.w + tab[k].w);
+      }
+      const unsigned key = vspl_order_key(fmaxf(fmaxf(a0, a1), fmaxf(a2, a3)));
+      const unsigned k0 = __reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? key : 0u);
+      const unsigned k1 = __reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? 0u : key);
+      const float m = vspl_key_value(lane < 16 ? k0 : k1);
+      const float nv = t == reset ? lpi + obs_t : m + obs_t;
+      if (sender) vspl_store_remote(b ? row0 : row1, nv, b ? bar0 : bar1);
+      if (keeper) out[static_cast<size_t>(t) * S + s] = cur;
+      cur = nv;
+      // refill the ring slot just read with frame t + VSPL_RING
+      const int f = t + VSPL_RING;
+      if (keeper) vspl_stage_one(ring + (f % VSPL_RING) * ring_w + j,
+                                 obs + static_cast<size_t>(f) * S + s, f < len);
+      else vspl_commit_copies();
+    }
+  }
+  if (keeper) t1_last[static_cast<size_t>(win) * S + s] = cur;
+  // every store into this block has landed before it may exit
+  if (threadIdx.x == 0) vspl_mbar_wait(vspl_smem_addr(&bar[(len - 1) & 1]), ((len - 1) >> 1) & 1);
+  vspl_wait_all_rows();
+  cluster.sync();
+}
+
+// K7's targets a block owns at S states.
+static int window_chunk(int S) {
+  // the cluster size rule: 8 blocks while a block's share is at most
+  // VSPL_WIN_CHUNK targets, else 16
+  const int c0 = S <= 8 * VSPL_WIN_CHUNK ? 8 : 16;
+  return (S + c0 - 1) / c0;
+}
+
+// K7's cluster size at S states: as many blocks as have a target.
+extern "C" int vspl_window_cluster_size(int S) {
+  const int chunk = window_chunk(S);
+  return (S + chunk - 1) / chunk;
+}
+
+template <int kVec>
+static int launch_window_forward(const float* log_obs, const float* logB,
+                                 const float* log_pi, const int* lengths,
+                                 const int* reset_rows, float* t1m1, float* t1_last,
+                                 int N, int W, int S, cudaStream_t stream) {
+  const int chunk = window_chunk(S);
+  const int C = vspl_window_cluster_size(S);
+  const int warps = (chunk + 1) / 2;
+  const size_t smem = 2 * sizeof(unsigned long long) +
+                      (2 * 64 * kVec + VSPL_RING * 2 * warps) * sizeof(float);
+  auto kernel = window_forward_kernel<kVec>;
+  cudaError_t e = cudaSuccess;
+  if (C > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N * C);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return VSPL_ERR_CLUSTER;
+  e = cudaLaunchKernelEx(&cfg, kernel, log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                         t1_last, W, S, chunk);
+  if (e != cudaSuccess) return e;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: N windows of W rows, each with its length and reset row; S <= 768.
+// logB[s][s'] is the transition score from s' to s (not transposed).
+extern "C" int vspl_window_forward(const float* log_obs, const float* logB,
+                                   const float* log_pi, const int* lengths,
+                                   const int* reset_rows, float* t1m1,
+                                   float* t1_last, int N, int W, int S,
+                                   void* stream) {
+  if (N <= 0 || W <= 0 || S <= 0 || S > 64 * 12) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S <= 64 * 2)
+    return launch_window_forward<2>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                                    t1_last, N, W, S, st);
+  if (S <= 64 * 6)
+    return launch_window_forward<6>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                                    t1_last, N, W, S, st);
+  return launch_window_forward<12>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                                   t1_last, N, W, S, st);
+}
+
+// ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
+
+// The backpointer pass: block (frame tile, state tile, window); thread
+// (ty, tx) of 16 x 16 keeps frames ty*4 + i and states tx*4 + c. Sources in
+// steps of VSPL_BP_KX through shared memory, transposed so that a step reads
+// one float4 of frames and one of states.
+__global__ void __launch_bounds__(256) window_backpointers_kernel(
+    const float* __restrict__ t1m1,    // [N, W, S]
+    const float* __restrict__ logB,    // [S, S]
+    const int* __restrict__ lengths,   // [N]
+    int* __restrict__ bp,              // [N, W, Sp], rows 1 <= t < len
+    int W, int S, int Sp) {
+  __shared__ __align__(16) float As[VSPL_BP_KX][VSPL_BP_FT + 4];
+  __shared__ __align__(16) float Bs[VSPL_BP_KX][VSPL_BP_FS + 4];
+  const int n = blockIdx.z;
+  const int t0 = blockIdx.x * VSPL_BP_FT, s0 = blockIdx.y * VSPL_BP_FS;
+  const int len = lengths[n];
+  if (t0 >= len) return;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* rows = t1m1 + static_cast<size_t>(n) * W * S;
+  float best[4][4];
+  int arg[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      best[i][c] = -CUDART_INF_F;
+      arg[i][c] = 0;
+    }
+  for (int x0 = 0; x0 < S; x0 += VSPL_BP_KX) {
+    for (int i = threadIdx.x; i < VSPL_BP_FT * VSPL_BP_KX; i += blockDim.x) {
+      const int f = i / VSPL_BP_KX, xx = i % VSPL_BP_KX, x = x0 + xx;
+      const int t = t0 + f, sv = s0 + f;
+      As[xx][f] = t < len && x < S ? rows[static_cast<size_t>(t) * S + x] : -CUDART_INF_F;
+      Bs[xx][f] = sv < S && x < S ? __ldg(logB + static_cast<size_t>(sv) * S + x) : 0.0f;
+    }
+    __syncthreads();
+    const int kx = min(VSPL_BP_KX, S - x0);
+    for (int xx = 0; xx < kx; ++xx) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[xx][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[xx][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float v = av[i] + bv[c];
+          // strict: on equal values the lower source, met first, stays
+          if (v > best[i][c]) {
+            best[i][c] = v;
+            arg[i][c] = x0 + xx;
+          }
+        }
+    }
+    __syncthreads();
+  }
+  const int sc = s0 + tx * 4;
+  if (sc >= Sp) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty * 4 + i;
+    if (t >= 1 && t < len)
+      *reinterpret_cast<int4*>(bp + (static_cast<size_t>(n) * W + t) * Sp + sc) =
+          make_int4(arg[i][0], arg[i][1], arg[i][2], arg[i][3]);
+  }
+}
+
+// The chase: one thread per window walks s_{t-1} = bp[t][s_t] from its start
+// state at frame len - 1. Chunk c holds bp rows [c R, c R + R) (R =
+// VSPL_CHASE_ROWS); `stages` chunks are in flight in the ring, each one bulk
+// copy on its own mbarrier, and a chunk's stage is refilled with chunk
+// c - stages as soon as its last row has been read.
+__global__ void __launch_bounds__(32) window_chase_kernel(
+    const int* __restrict__ bp,            // [N, W, Sp]
+    const int* __restrict__ start_states,  // [N]
+    const int* __restrict__ lengths,       // [N]
+    int* __restrict__ states,              // [N, W]
+    int W, int Sp, int stages) {
+  extern __shared__ __align__(16) unsigned long long chase_smem[];
+  if (threadIdx.x != 0) return;
+  constexpr int R = VSPL_CHASE_ROWS;
+  unsigned long long* bar = chase_smem;                                // [stages]
+  int* ring = reinterpret_cast<int*>(chase_smem + 2 * ((stages + 1) / 2));  // [stages][R][Sp]
+  const int n = blockIdx.x;
+  const int len = lengths[n];
+  int s = start_states[n];
+  int* out = states + static_cast<size_t>(n) * W;
+  out[len - 1] = s;
+  if (len == 1) return;
+  const int* src = bp + static_cast<size_t>(n) * W * Sp;
+  for (int i = 0; i < stages; ++i) vspl_mbar_init(vspl_smem_addr(&bar[i]), 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  auto fetch = [&](int c) {
+    const int stage = c % stages;
+    const unsigned bytes = static_cast<unsigned>(min(R, len - c * R) * Sp) * 4u;
+    const unsigned b = vspl_smem_addr(&bar[stage]);
+    vspl_mbar_expect(b, bytes);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(vspl_smem_addr(ring + static_cast<size_t>(stage) * R * Sp)),
+        "l"(src + static_cast<size_t>(c) * R * Sp), "r"(bytes), "r"(b)
+        : "memory");
+  };
+  const int last = (len - 1) / R;
+  for (int c = last; c >= 0 && c > last - stages; --c) fetch(c);
+  for (int c = last; c >= 0; --c) {
+    const int stage = c % stages;
+    vspl_mbar_wait(vspl_smem_addr(&bar[stage]), ((last - c) / stages) & 1);
+    const int* rows = ring + static_cast<size_t>(stage) * R * Sp;
+    const int hi = min(R - 1, len - 1 - c * R), lo = c == 0 ? 1 : 0;
+    for (int r = hi; r >= lo; --r) {
+      s = rows[r * Sp + s];
+      out[c * R + r - 1] = s;  // also: the load has completed before the refill
+    }
+    if (c >= stages) fetch(c - stages);
+  }
+}
+
+// K8: N windows of W rows, each chased from its start state at frame len - 1;
+// bp: scratch [N, W, Sp] int32, Sp = S rounded up to a multiple of 4.
+extern "C" int vspl_window_backtrace(const float* t1m1, const float* logB,
+                                     const int* start_states, const int* lengths,
+                                     int* states, int* bp, int N, int W, int S,
+                                     void* stream) {
+  const int Sp = (S + 3) / 4 * 4;
+  const size_t chunk_bytes = static_cast<size_t>(VSPL_CHASE_ROWS) * Sp * sizeof(int);
+  const int stages = static_cast<int>(min(static_cast<size_t>(8), VSPL_CHASE_RING_BYTES / chunk_bytes));
+  if (N <= 0 || W <= 0 || S <= 0 || stages < 2) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((W + VSPL_BP_FT - 1) / VSPL_BP_FT, (S + VSPL_BP_FS - 1) / VSPL_BP_FS, N);
+  window_backpointers_kernel<<<grid, 256, 0, st>>>(t1m1, logB, lengths, bp, W, S, Sp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t smem = 8 * 2 * ((stages + 1) / 2) + stages * chunk_bytes;
+  e = cudaFuncSetAttribute(window_chase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  window_chase_kernel<<<N, 32, smem, st>>>(bp, start_states, lengths, states, W, Sp, stages);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("viterbi_banded", "viterbi_dense", "obs")
+SOURCES = ("viterbi_banded", "viterbi_dense", "viterbi_window", "obs")
 # sm_90a, -O3, and deliberately no --use_fast_math: the decoders must stay
 # bit-exact. -Xptxas -v writes each kernel's registers and spills to the log.
 NVCC_FLAGS = (

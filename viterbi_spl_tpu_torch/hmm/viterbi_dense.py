@@ -4,13 +4,15 @@ viterbi_spl_tpu/hmm/viterbi_pallas.py).
 K3 (forward) and K4 (backtrace) decode batches of tracks; K7 (forward) and
 K8 (backtrace) decode windows of one track, each with its own length, reset
 row and start state (the single-track kernels of the JAX package, which the
-sequence-parallel decode runs over its time blocks). All four are CUDA C++
-in csrc/viterbi_dense.cu, each with its plain PyTorch version here. The
-forward stores no backpointers: it writes the shifted rows
-t1m1[:, t] = T1[t-1] (row 0 zeros), and the backtrace rebuilds each
-pointer as the first-max argmax of t1m1[t] + logB[s_t, :] — the very row
-the forward step reduced, so paths are bit-identical to storing
-backpointers, and to the NumPy oracle.
+sequence-parallel decode runs over its time blocks). All four are CUDA C++,
+K3/K4 in csrc/viterbi_dense.cu and K7/K8 in csrc/viterbi_window.cu, each
+with its plain PyTorch version here. The forwards store no backpointers:
+they write the shifted rows t1m1[:, t] = T1[t-1] (row 0 zeros), and the
+backtrace rebuilds each pointer as the first-max argmax of
+t1m1[t] + logB[s_t, :] — the very row the forward step reduced, so paths
+are bit-identical to storing backpointers, and to the NumPy oracle. On the
+card K8 rebuilds every pointer of a window in one parallel pass before its
+chase (window_backpointers_plain is that pass's plain version).
 
 `viterbi_decode_batch_logobs` keeps the dispatch of the JAX package's
 `viterbi_decode_batch_pallas_logobs`: the banded forward (K1) when the
@@ -92,17 +94,30 @@ def window_backtrace_plain(log_B, t1m1, start_states, lengths):
     return states
 
 
+def window_backpointers_plain(log_B, t1m1, lengths):
+    """The plain version of K8's backpointer pass: bp[n, t, s] =
+    first-argmax_x(t1m1[n, t, x] + log_B[s, x]) for 1 <= t < lengths[n],
+    zeros elsewhere; [N, W, S] int32. Chasing s_{t-1} = bp[n, t, s_t] from
+    a start state gives window_backtrace_plain's states."""
+    N, W, S = t1m1.shape
+    lengths = torch.as_tensor(lengths, device=t1m1.device)
+    bp = torch.zeros((N, W, S), dtype=torch.int32, device=t1m1.device)
+    log_B = log_B.to(t1m1.device)
+    for t in range(1, W):
+        cand = t1m1[:, t, None, :] + log_B[None]  # [N, S targets, S sources]
+        bp[:, t] = torch.where((t < lengths)[:, None], first_argmax(cand, dim=2), 0).to(torch.int32)
+    return bp
+
+
 def dense_forward_plain(log_B, log_pi, log_obs, lengths):
     """K3's plain version: log_B [S, S] (= log(A.T + tiny)), log_pi [S],
     log_obs [N, T, S], lengths [N] -> (t1_last [N, S], t1m1 [N, T, S]).
-    K7's with every reset row 0: K3 and K7 share one DP body, here as in
-    csrc/viterbi_dense.cu."""
+    K7's with every reset row 0 (K3 and K7 compute one DP)."""
     return window_forward_plain(log_B, log_pi, log_obs, lengths, np.zeros(log_obs.shape[0], np.int32))
 
 
 # K4's plain version -> states [N, T] int32 (zeros at or beyond each
-# track's length): K8's chase from each track's last state (the kernels
-# share one chase, csrc/viterbi_dense.cu::dense_chase)
+# track's length): K8's chase from each track's last state
 dense_backtrace_plain = window_backtrace_plain
 
 
@@ -111,8 +126,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "vspl_dense_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vspl_dense_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+_WINDOW_SIGNATURES = {
     "vspl_window_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "vspl_window_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vspl_window_backtrace": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vspl_window_cluster_size": [_I],
 }
 
 
@@ -173,9 +191,10 @@ def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths):
 
 def window_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, reset_rows):
     """K7: the dense forward over a batch of windows of one track, each with
-    its own length and reset row, in one launch (one cluster per window).
-    Same contract as window_forward_plain; on the GPU, rows of t1m1 at or
-    beyond a window's length are left unwritten."""
+    its own length and reset row, in one launch (one cluster per window: 8
+    blocks up to 384 states, 16 up to 768, the kernel's limit). Same
+    contract as window_forward_plain; on the GPU, rows of t1m1 at or beyond
+    a window's length are left unwritten."""
     N, W, S = log_obs.shape
     lens = cuda_lib.host_lengths(lengths, N, W)
     reset = np.asarray(reset_rows, np.int32)
@@ -188,16 +207,16 @@ def window_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, reset_rows):
     if log_obs.device.type == "cpu":
         return window_forward_plain(log_B, log_pi, log_obs, lens, reset)
     dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
-    log_A = log_B.to(dev).t().contiguous()
+    log_B = log_B.to(dev).contiguous()
     log_pi = log_pi.to(dev).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
     reset_d = torch.as_tensor(reset, device=dev)
     t1m1 = torch.empty_like(log_obs)
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
-    lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
+    lib = cuda_lib.load("viterbi_window", _WINDOW_SIGNATURES)
     P = cuda_lib.ptr
     rc = lib.vspl_window_forward(
-        P(log_obs), P(log_A), P(log_pi), P(lens_d), P(reset_d), P(t1m1), P(t1_last),
+        P(log_obs), P(log_B), P(log_pi), P(lens_d), P(reset_d), P(t1m1), P(t1_last),
         N, W, S, cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "window forward (K7)")
@@ -205,11 +224,19 @@ def window_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, reset_rows):
     return t1_last, t1m1
 
 
+def window_cluster_size(S: int) -> int:
+    """Blocks in each of K7's thread-block clusters at S states (the
+    kernel's fixed rule; builds the kernel's library)."""
+    return cuda_lib.load("viterbi_window", _WINDOW_SIGNATURES).vspl_window_cluster_size(S)
+
+
 def window_backtrace(log_B, t1m1: torch.Tensor, start_states, lengths):
     """K8: the chase over a batch of windows, each from its own start state
-    at its last frame, in one launch (one warp per window). Returns states
-    [N, W] int32; entries at or beyond each window's length are
-    unspecified."""
+    at its last frame: on the card a parallel pass writes every backpointer
+    of every window into a scratch [N, W, S rounded up to 4] int32, then one
+    thread per window chases them (two kernels, one counted launch).
+    Returns states [N, W] int32; entries at or beyond each window's length
+    are unspecified."""
     N, W, S = t1m1.shape
     lens = cuda_lib.host_lengths(lengths, N, W)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
@@ -222,10 +249,11 @@ def window_backtrace(log_B, t1m1: torch.Tensor, start_states, lengths):
     start = torch.as_tensor(start_states).to(dev, torch.int32).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
     states = torch.empty((N, W), dtype=torch.int32, device=dev)
-    lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
+    bp = torch.empty((N, W, -(-S // 4) * 4), dtype=torch.int32, device=dev)
+    lib = cuda_lib.load("viterbi_window", _WINDOW_SIGNATURES)
     P = cuda_lib.ptr
     rc = lib.vspl_window_backtrace(
-        P(t1m1), P(log_B), P(start), P(lens_d), P(states), N, W, S,
+        P(t1m1), P(log_B), P(start), P(lens_d), P(states), P(bp), N, W, S,
         cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "window backtrace (K8)")
