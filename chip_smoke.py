@@ -6,11 +6,12 @@ their entry points, and times the kernels at full width.
     python3 chip_smoke.py [--baseline DIR]
 
 --baseline DIR: a tree of an earlier commit of this repo (for example
-`git archive <commit> | tar -x -C runs/base`); its
-viterbi_spl_tpu_torch/csrc/viterbi_dense.cu, which held K7/K8 before they
-moved to csrc/viterbi_window.cu, is built under a scratch name in the build
-directory, and phase 4c times its K7/K8 in turns with this tree's (old, new,
-new, old) as K7_pr3_ms / K8_pr3_ms. Without it those keys are null.
+`git archive 7769e5b | tar -x -C runs/base`); its viterbi_spl_tpu_torch
+package is imported as `vspl_baseline` and its csrc/viterbi_banded.cu built
+into its own build directory (while this tree's kernels build), and phases
+4, 4b and 4d time its K1, K2 and K9 wrappers in turns with this tree's
+(old, new, new, old) as *_base_ms keys, each checked bit-equal to this
+tree's output on the same inputs. Without it those keys are null.
 
 Phases (one JSON line each):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, build time.
@@ -18,7 +19,10 @@ Phases (one JSON line each):
      ragged lengths): K1/K2 at 361 states (tonet, d_max 14) and 722 (jdc,
      d_max 40), K3/K4 at 722 (imm's analytic matrix) and 361 (a random
      dense matrix); exact equality (tolerance 0), and track 0 against the
-     oracle. K5/K6 at 361 bins (spw 5) and 722 (spw 16 and 20) under the
+     oracle; K2 by both its routes (the backpointer pass and the chase, and
+     a chain per track), also on the tie fixture (hmm/fixtures.py:
+     equal maxima at every step of every chase), equal to its plain version
+     and to the fixture's path. K5/K6 at 361 bins (spw 5) and 722 (spw 16 and 20) under the
      observation contract (lanes at log TINY bit-equal, rtol 2e-4 with atol
      1e-6 above -80, at most log 2 in the floor region, the unvoiced lane
      within rtol 1e-6); K9 at tonet 361 and jdc 722 for all three methods,
@@ -42,24 +46,25 @@ Phases (one JSON line each):
      oracle on the port's own fused log observations, and K5, K6 and K9
      hold against their plain versions on those inputs.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
-     N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense).
+     N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense);
+     with --baseline, the earlier K1/K2 in turns at the banded shapes.
   4b. bench.py's two serving chains: 361 states, N=128, T=8192, spw 5;
      722 states, N=64, T=4096, spw 16, d_max 40, track 0 at length 1024.
      ms and frames/s of K5 alone, K6 (scaled) alone, K5 -> K1 -> argmax ->
      K2, K9 -> K2, and the default path (the PyTorch observation model, the
-     log, then K1/K2); track 0 against the oracle on K5's log observations.
+     log, then K1/K2); track 0 against the oracle on K5's log observations;
+     with --baseline, the earlier K1, K2 and K9 in turns.
   4c. the single-track kernels: K7 and K8 alone (us per frame and per step,
      K7's cluster size) and the single-track decode on the 32768-frame
      tonet track, the time-sharded decode's ms per halo attempt against it,
-     and the single-track decode at imm 722, T=4096; with --baseline, the
-     earlier K7/K8 in turns with these on the same inputs, and equal to
-     them.
+     and the single-track decode at imm 722, T=4096.
   4d. each kernel at the shapes of the launches the kernels line counts,
      one timing per counted launch: K1/K2 on the CLI's batch, K3/K4 on the
      imm DecoderSetup's, K5/K6 on the fused CLI's and DecoderSetup's logits,
      K9 on the fused decode API's batch, K7/K8 over the time-sharded
      decode's windows at each halo it tried and the seam-stress fixture's;
-     the sum of those times and of their bounds.
+     the sum of those times and of their bounds; with --baseline, the
+     earlier K1, K2 and K9 in turns at the same launches, and their sums.
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
      bounds it (and the phase 4d sums).
@@ -71,12 +76,14 @@ without CUDA.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -101,6 +108,7 @@ from viterbi_spl_tpu_torch.dist.sharded_viterbi import halo_windows
 from viterbi_spl_tpu_torch.families import family_spec
 from viterbi_spl_tpu_torch.harness.evaluate import DecoderSetup
 from viterbi_spl_tpu_torch.hmm import obs_fused as OF
+from viterbi_spl_tpu_torch.hmm import fixtures as FX
 from viterbi_spl_tpu_torch.hmm import params as hmm_params
 from viterbi_spl_tpu_torch.hmm import viterbi_banded as VB
 from viterbi_spl_tpu_torch.hmm import viterbi_dense as VD
@@ -213,7 +221,7 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
         bs = VB.extract_banded_structure(A)
         check(bs is not None, "shaped matrix has the banded structure")
         fwd = lambda o, L: VB.banded_forward(bs, log_pi, o, L)  # noqa: E731
-        bt = lambda t1m1, last, L: VB.banded_backtrace(bs, t1m1, last, L)  # noqa: E731
+        bt = lambda t1m1, last, L, route=None: VB.banded_backtrace(bs, t1m1, last, L, route)  # noqa: E731
         fwd_p = lambda o, L: VB.banded_forward_plain(bs, torch.from_numpy(log_pi).to(o.device), o, L)  # noqa: E731
         bt_p = lambda t1m1, last, L: VB.banded_backtrace_plain(bs, t1m1, last, L)  # noqa: E731
     else:
@@ -221,22 +229,29 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
         dev = log_obs.device
         lB, lpi = torch.from_numpy(log_B).to(dev), torch.from_numpy(log_pi).to(dev)
         fwd = lambda o, L: VD.dense_forward(log_B, log_pi, o, L)  # noqa: E731
-        bt = lambda t1m1, last, L: VD.dense_backtrace(log_B, t1m1, last, L)  # noqa: E731
+        bt = lambda t1m1, last, L, route=None: VD.dense_backtrace(log_B, t1m1, last, L)  # noqa: E731
         fwd_p = lambda o, L: VD.dense_forward_plain(lB, lpi, o, L)  # noqa: E731
         bt_p = lambda t1m1, last, L: VD.dense_backtrace_plain(lB, t1m1, last, L)  # noqa: E731
     return (fwd, bt, fwd_p, bt_p), log_B, log_pi
 
 
+def k2_routes(kind):
+    """The backtrace's routes to hold against its plain version: K2's two
+    (banded_backtrace's route), or K4's one."""
+    return ("pass", "chain") if kind == "banded" else (None,)
+
+
 def compare_kernels(kind, A, pi, log_obs, lengths):
     """One matrix's forward and backtrace kernels against their plain
-    versions on the same inputs: (forward error, backtrace error, track 0
-    equals the oracle). The errors are the largest absolute differences of
-    t1_last, of t1m1 up to each track's length and of the states."""
+    versions on the same inputs, the backtrace by each of its routes:
+    (forward error, backtrace error, track 0 equals the oracle by every
+    route). The errors are the largest absolute differences of t1_last, of
+    t1m1 up to each track's length and of the states."""
     (fwd, bt, fwd_p, bt_p), log_B, log_pi = kernel_pair(kind, A, pi, log_obs, lengths)
     t1_k, t1m1_k = fwd(log_obs, lengths)
     t1_p, t1m1_p = fwd_p(log_obs, lengths)
     last = torch.argmax(t1_p, dim=1).to(torch.int32)
-    st_k = bt(t1m1_k, last, lengths)
+    st_ks = [bt(t1m1_k, last, lengths, route) for route in k2_routes(kind)]
     st_p = bt_p(t1m1_p, last, lengths)
     torch.cuda.synchronize()
     f_err = float((t1_k - t1_p).abs().max())
@@ -244,10 +259,11 @@ def compare_kernels(kind, A, pi, log_obs, lengths):
     for n, L in enumerate(lengths):
         L = int(L)
         f_err = max(f_err, float((t1m1_k[n, :L] - t1m1_p[n, :L]).abs().max()))
-        b_err = max(b_err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
+        for st_k in st_ks:
+            b_err = max(b_err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
     L0 = int(lengths[0])
     oracle = viterbi_oracle_log(log_B, log_pi, log_obs[0, :L0].cpu().numpy())
-    return f_err, b_err, bool(np.array_equal(st_k[0, :L0].cpu().numpy(), oracle))
+    return f_err, b_err, all(np.array_equal(st_k[0, :L0].cpu().numpy(), oracle) for st_k in st_ks)
 
 
 def record_errors(errs, kind, label, N, T, f_err, b_err, oracle_ok) -> None:
@@ -256,8 +272,8 @@ def record_errors(errs, kind, label, N, T, f_err, b_err, oracle_ok) -> None:
     errs[kf] = max(errs[kf], f_err)
     errs[kb] = max(errs[kb], b_err)
     emit({"phase": "equality", "kind": kind, "shape": label, "N": N, "T": T,
-          "forward_max_abs_err": f_err, "backtrace_max_abs_err": b_err,
-          "track0_matches_oracle": oracle_ok})
+          "backtrace_routes": k2_routes(kind), "forward_max_abs_err": f_err,
+          "backtrace_max_abs_err": b_err, "track0_matches_oracle": oracle_ok})
     check(f_err == 0.0 and b_err == 0.0, f"{kind} {label}: kernels equal their plain versions")
     check(oracle_ok, f"{kind} {label}: track 0 equals the oracle")
 
@@ -279,6 +295,26 @@ def phase_equality(dev, errs) -> None:
         lengths[0], lengths[1] = T, 1
         log_obs = uniform_log_obs(N, T, S, seed=S, dev=dev)
         record_errors(errs, kind, str(S), N, T, *compare_kernels(kind, A, pi, log_obs, lengths))
+        if kind == "banded":
+            # K2 by both routes on the tie fixture: two equal maxima at every
+            # step of each chase
+            bs = VB.extract_banded_structure(A)
+            t1m1, last, path = FX.tie_fixture(bs, rng, lengths, T)
+            t1m1 = torch.from_numpy(t1m1).to(dev)
+            st_p = VB.banded_backtrace_plain(bs, t1m1, last, lengths)
+            for route in k2_routes(kind):
+                st_k = VB.banded_backtrace(bs, t1m1, torch.from_numpy(last).to(dev), lengths,
+                                           route)
+                err, on_path = 0.0, True
+                for n, L in enumerate(lengths):
+                    err = max(err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
+                    on_path = on_path and np.array_equal(st_k[n, :L].cpu().numpy(), path[n, :L])
+                errs["K2"] = max(errs["K2"], err)
+                emit({"phase": "equality", "kind": "banded tie fixture", "shape": str(S),
+                      "N": N, "T": T, "route": route, "backtrace_max_abs_err": err,
+                      "states_equal_fixture_path": on_path})
+                check(err == 0.0 and on_path,
+                      f"K2 {S} tie fixture by its {route}: equals its plain version and the path")
 
 
 def padded_log_obs(setup, logits_list):
@@ -864,8 +900,10 @@ def full_width_shapes():
     ]
 
 
-def phase_timing(dev, shapes) -> dict:
-    """Per shape: kernel ms, plain ms (short T, scaled per frame), bound."""
+def phase_timing(dev, shapes, base=None) -> dict:
+    """Per shape: kernel ms, plain ms (short T, scaled per frame), bound;
+    with a baseline, its K1 and K2 in turns at the banded shapes, and equal
+    to these."""
     T_PLAIN = 32
     results = {}
     for kind, label, N, T, (A, pi) in shapes:
@@ -875,12 +913,22 @@ def phase_timing(dev, shapes) -> dict:
         (fwd, bt, fwd_p, bt_p), log_B, log_pi = kernel_pair(kind, A, pi, log_obs, lengths)
         kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
         iters = 5 if T * N > 1 << 20 else 10
+        bs = VB.extract_banded_structure(A) if kind == "banded" else None
+        old = base if kind == "banded" else None
         out = {}
-        ms_f = cuda_ms(lambda: out.update(f=fwd(log_obs, lengths)), iters)
+        ms_f, ms_f_old = in_turns(
+            lambda: out.update(f=fwd(log_obs, lengths)),
+            old and (lambda: old.k1(bs, log_pi, log_obs, lengths)), iters)
         t1_last, t1m1 = out.pop("f")
         last = torch.argmax(t1_last, dim=1).to(torch.int32)
-        ms_b = cuda_ms(lambda: out.update(b=bt(t1m1, last, lengths)), iters)
+        ms_b, ms_b_old = in_turns(
+            lambda: out.update(b=bt(t1m1, last, lengths)),
+            old and (lambda: old.k2(bs, t1m1, last, lengths)), iters)
         states = out.pop("b")
+        if old:
+            check(same_forward(old.k1(bs, log_pi, log_obs, lengths), (t1_last, t1m1), lengths)
+                  and same_states(old.k2(bs, t1m1, last, lengths), states, lengths),
+                  f"{label}: the baseline's K1/K2 give the same t1_last, t1m1 and states")
 
         def decode():
             t1, rows = fwd(log_obs, lengths)
@@ -903,15 +951,17 @@ def phase_timing(dev, shapes) -> dict:
         last_s = torch.argmax(t1_s, dim=1).to(torch.int32)
         ms_bp = cuda_ms(lambda: bt_p(rows_s, last_s, lens_s), 1) * T / T_PLAIN
 
-        bs = VB.extract_banded_structure(A) if kind == "banded" else None
         bf = bounds(kf, S, lengths, bs)
         bb = bounds(kb, S, lengths, bs)
         rec = {"phase": "timing", "shape": label, "N": N, "T": T, "S": S,
                "decode_ms": ms_decode, "frames_per_s": N * T / (ms_decode / 1e3),
                f"{kf}_ms": ms_f, f"{kb}_ms": ms_b,
+               f"{kf}_base_ms": ms_f_old, f"{kb}_base_ms": ms_b_old,
                f"{kf}_plain_ms": ms_fp, f"{kb}_plain_ms": ms_bp,
                f"{kf}_bound_ms": bf[0], f"{kf}_bound_by": bf[1],
                f"{kb}_bound_ms": bb[0], f"{kb}_bound_by": bb[1],
+               "K2_route": bs and VB.k2_route(bs, N, T, last),
+               "voiced_share": voiced_share(states, S, lengths),
                "plain_T": T_PLAIN, "oracle_seconds": oracle_s, "track0_matches_oracle": oracle_ok}
         emit(rec)
         results[label] = rec
@@ -927,12 +977,13 @@ SERVING_SHAPES = (
 )
 
 
-def phase_serving(dev) -> dict:
+def phase_serving(dev, base=None) -> dict:
     """bench.py's serving chains on logits normal - 2 (threshold 0): K5 and
     K6 (scaled) alone, K5 -> K1 -> argmax -> K2, K9 -> K2, and the default
     path (the PyTorch observation model, the log, K1/K2). Checks that both
     chains decode the same states and that track 0 equals the oracle on
-    K5's log observations."""
+    K5's log observations. With a baseline, its K1, K2 and K9 in turns with
+    these, and equal to them."""
     T_PLAIN = 32
     results = {}
     for label, n_bins, d_max, spw, N, T, len0, seed in SERVING_SHAPES:
@@ -974,17 +1025,31 @@ def phase_serving(dev) -> dict:
         ms_k5 = cuda_ms(lambda: out.update(o=OF.log_obs(logits, shaun)), iters)
         log_obs = out.pop("o")
         ms_k6 = cuda_ms(lambda: OF.log_obs(logits, scaled), iters)
-        ms_k1 = cuda_ms(lambda: out.update(f=VB.banded_forward(bs, log_pi, log_obs, lengths)), iters)
+        ms_k1, ms_k1_old = in_turns(
+            lambda: out.update(f=VB.banded_forward(bs, log_pi, log_obs, lengths)),
+            base and (lambda: base.k1(bs, log_pi, log_obs, lengths)), iters)
         t1, rows = out.pop("f")
         last = argmax(t1)
-        ms_k2 = cuda_ms(lambda: out.update(b=VB.banded_backtrace(bs, rows, last, lengths)), iters)
-        states_k5 = out.pop("b").cpu().numpy()
-        del rows
-        ms_k9 = cuda_ms(lambda: out.update(f=VB.banded_forward_obs(bs, log_pi, logits, lengths, shaun)), iters)
+        ms_k2, ms_k2_old = in_turns(
+            lambda: out.update(b=VB.banded_backtrace(bs, rows, last, lengths)),
+            base and (lambda: base.k2(bs, rows, last, lengths)), iters)
+        states_k5 = out.pop("b")
+        voiced = voiced_share(states_k5, S, lengths)
+        if base:
+            check(same_forward(base.k1(bs, log_pi, log_obs, lengths), (t1, rows), lengths)
+                  and same_states(base.k2(bs, rows, last, lengths), states_k5, lengths),
+                  f"{label}: the baseline's K1/K2 give the same results")
+        states_k5 = states_k5.cpu().numpy()
+        ms_k9, ms_k9_old = in_turns(
+            lambda: out.update(f=VB.banded_forward_obs(bs, log_pi, logits, lengths, shaun)),
+            base and (lambda: base.k9(bs, log_pi, logits, lengths, shaun)), iters)
         t1_9, rows_9 = out.pop("f")
         states_k9 = VB.banded_backtrace(bs, rows_9, argmax(t1_9), lengths).cpu().numpy()
-        k9_exact = bool(torch.equal(t1_9, t1))
-        del rows_9, t1_9
+        k9_exact = same_forward((t1_9, rows_9), (t1, rows), lengths)
+        if base:
+            check(same_forward(base.k9(bs, log_pi, logits, lengths, shaun), (t1_9, rows_9), lengths),
+                  f"{label}: the baseline's K9 gives the same t1_last and t1m1")
+        del rows_9, t1_9, rows
         torch.cuda.empty_cache()
         same = all(np.array_equal(states_k9[n, :L], states_k5[n, :L]) for n, L in enumerate(lengths))
         oracle_ok = bool(np.array_equal(states_k5[0, :len0], viterbi_oracle_log(
@@ -1025,8 +1090,11 @@ def phase_serving(dev) -> dict:
                "K6_ms": ms_k6, "K6_frames_per_s": fps(ms_k6, N * T),
                "K6_plain_ms": ms_k6_plain, "K6_bound_ms": b6[0], "K6_bound_by": b6[1],
                "K9_ms": ms_k9, "K9_plain_ms": ms_k9_plain, "K9_bound_ms": b9[0],
-               "K9_bound_by": b9[1], "K9_plain_T": T_PLAIN,
+               "K9_bound_by": b9[1], "K9_plain_T": T_PLAIN, "K9_base_ms": ms_k9_old,
                "K1_on_K5_ms": ms_k1, "K2_ms_in_chain": ms_k2,
+               "K2_route": VB.k2_route(bs, N, T, last),
+               "voiced_share": voiced,
+               "K1_on_K5_base_ms": ms_k1_old, "K2_in_chain_base_ms": ms_k2_old,
                "chain_K5_K1_K2_ms": ms_chain_k5, "chain_K5_K1_K2_frames_per_s": fps(ms_chain_k5),
                "chain_K9_K2_ms": ms_chain_k9, "chain_K9_K2_frames_per_s": fps(ms_chain_k9),
                "default_obs_ms": ms_default_obs,
@@ -1041,47 +1109,56 @@ def phase_serving(dev) -> dict:
     return results
 
 
-def build_baseline(tree: Path | None):
-    """(K7, K8) of an earlier tree's csrc/viterbi_dense.cu (where K7 read
-    the transposed table logA and K8 chased with a warp per window), built with
-    the port's flags under a scratch name in the build directory; None
-    without a tree. Each takes and returns what VD.window_forward /
-    VD.window_backtrace do, on tensors on the card."""
-    if tree is None:
-        return None
-    src = Path(tree) / "viterbi_spl_tpu_torch" / "csrc" / "viterbi_dense.cu"
-    out = cuda_lib.BUILD_DIR / "libviterbi_dense_baseline.so"
-    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(out), str(src)],
-                   check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(out))
-    lib.vspl_window_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.vspl_window_backtrace.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    P = cuda_lib.ptr
+class Baseline:
+    """An earlier tree's viterbi_spl_tpu_torch, imported as the package
+    `vspl_baseline`: its own wrappers of K1, K2 and K9 (banded_forward,
+    banded_backtrace, banded_forward_obs), with its kernels built from its
+    own csrc/ into its own build directory. They take and return what this
+    tree's wrappers do."""
 
-    def k7(log_B, log_pi, log_obs, lengths, resets):
-        N, W, S = log_obs.shape
-        dev = log_obs.device
-        log_A = log_B.t().contiguous()
-        lens, rst = (torch.as_tensor(np.asarray(x, np.int32), device=dev) for x in (lengths, resets))
-        t1m1 = torch.empty_like(log_obs)
-        t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
-        check(lib.vspl_window_forward(P(log_obs), P(log_A), P(log_pi), P(lens), P(rst), P(t1m1),
-                                      P(t1_last), N, W, S, cuda_lib.stream_ptr(dev)) == 0,
-              "baseline K7 launched")
-        return t1_last, t1m1
+    def __init__(self, tree: Path):
+        """Imports the package and starts its build; load() waits for it."""
+        pkg = Path(tree).resolve() / "viterbi_spl_tpu_torch"
+        check((pkg / "csrc" / "viterbi_banded.cu").exists(), f"--baseline tree has {pkg}")
+        spec = importlib.util.spec_from_file_location(
+            "vspl_baseline", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        sys.modules["vspl_baseline"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules["vspl_baseline"])
+        self.cuda_lib = importlib.import_module("vspl_baseline.cuda_lib")
+        vb = importlib.import_module("vspl_baseline.hmm.viterbi_banded")
+        self.k1, self.k2, self.k9 = vb.banded_forward, vb.banded_backtrace, vb.banded_forward_obs
+        self.error = None
+        self.thread = threading.Thread(target=self._build)
+        self.thread.start()
 
-    def k8(log_B, t1m1, start, lengths):
-        N, W, S = t1m1.shape
-        dev = t1m1.device
-        lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
-        st = torch.as_tensor(start).to(dev, torch.int32).reshape(N).contiguous()
-        states = torch.empty((N, W), dtype=torch.int32, device=dev)
-        check(lib.vspl_window_backtrace(P(t1m1), P(log_B), P(st), P(lens), P(states), N, W, S,
-                                        cuda_lib.stream_ptr(dev)) == 0, "baseline K8 launched")
-        return states
+    def _build(self) -> None:
+        try:
+            self.cuda_lib.build(["viterbi_banded"])
+        except Exception as e:  # re-raised by load()
+            self.error = e
 
-    return k7, k8
+    def load(self) -> "Baseline":
+        self.thread.join()
+        if self.error is not None:
+            raise RuntimeError("the baseline's viterbi_banded.cu does not build") from self.error
+        return self
+
+
+def voiced_share(states, S, lengths) -> float:
+    """The share of the decoded frames below each length at a voiced state
+    (K2's chain skips its in-band scan at the unvoiced one)."""
+    frames = [states[n, :L] for n, L in enumerate(np.asarray(lengths))]
+    return float(torch.cat(frames).ne(S - 1).float().mean())
+
+
+def same_forward(a, b, lengths) -> bool:
+    """Two (t1_last, t1m1) bit-equal: t1_last, and t1m1 below each length."""
+    return bool(torch.equal(a[0], b[0])) and all(
+        torch.equal(a[1][n, :L], b[1][n, :L]) for n, L in enumerate(np.asarray(lengths)))
+
+
+def same_states(a, b, lengths) -> bool:
+    return all(torch.equal(a[n, :L], b[n, :L]) for n, L in enumerate(np.asarray(lengths)))
 
 
 def in_turns(new, old, iters):
@@ -1093,42 +1170,28 @@ def in_turns(new, old, iters):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
-def phase_seq_timing(dev, seq, baseline) -> dict:
+def phase_seq_timing(dev, seq) -> dict:
     """K7 and K8 alone and the single-track decode K7 -> argmax -> K8 on the
     32768-frame tonet track of phase 3c and on an imm 722 track of 4096
     frames (uniform log observations); on the tonet track also the
     time-sharded decode: K7 and K8 over its 8 windows at the final halo
     (one launch each), one halo attempt (windows, K7, argmax, K8 and the
     certificate) at each halo the certified decode tried, and the
-    certified decode from halo 64. With a baseline (build_baseline), its
-    K7/K8 in turns with these on the same inputs, required to give the same
-    t1_last, t1m1 and states."""
+    certified decode from halo 64."""
     T_PLAIN = 32
     imm_A = hmm_params.imm_transition_matrix(20, 721)
     cases = [("tonet 361 track", seq["A"], seq["pi"], seq["log_obs"]),
              ("imm 722 track", imm_A, np.full(722, 1.0 / 722),
               uniform_log_obs(1, 4096, 722, seed=9, dev=dev)[0])]
-    old_k7, old_k8 = baseline or (None, None)
     results = {}
     for label, A, pi, log_obs in cases:
         T, S = log_obs.shape
         log_B, log_pi = (torch.from_numpy(x).to(dev) for x in prepare_log_params(A, pi))
-        one, zero = np.array([T], np.int32), np.zeros(1, np.int32)
+        zero = np.zeros(1, np.int32)
         t1_last, t1m1 = VD.viterbi_forward(log_B, log_pi, log_obs, T)
         last = torch.argmax(t1_last)
-        if baseline:
-            o_t1, o_m = old_k7(log_B, log_pi, log_obs[None], one, zero)
-            o_st = old_k8(log_B, t1m1[None], last.reshape(1), one)
-            new_st = VD.viterbi_backtrace(t1m1, log_B, last, T)
-            check(torch.equal(o_t1[0], t1_last) and torch.equal(o_m[0], t1m1)
-                  and torch.equal(o_st[0], new_st), f"{label}: the baseline's K7/K8 give the same results")
-            del o_m
-        ms_f, ms_f_old = in_turns(
-            lambda: VD.viterbi_forward(log_B, log_pi, log_obs, T),
-            old_k7 and (lambda: old_k7(log_B, log_pi, log_obs[None], one, zero)), 5)
-        ms_b, ms_b_old = in_turns(
-            lambda: VD.viterbi_backtrace(t1m1, log_B, last, T),
-            old_k8 and (lambda: old_k8(log_B, t1m1[None], last.reshape(1), one)), 5)
+        ms_f = cuda_ms(lambda: VD.viterbi_forward(log_B, log_pi, log_obs, T), 5)
+        ms_b = cuda_ms(lambda: VD.viterbi_backtrace(t1m1, log_B, last, T), 5)
         del t1m1
 
         def decode():
@@ -1150,7 +1213,6 @@ def phase_seq_timing(dev, seq, baseline) -> dict:
                "K7_ms": ms_f, "K8_ms": ms_b, "K7_plain_ms": ms_fp, "K8_plain_ms": ms_bp,
                "K7_us_per_frame": 1e3 * ms_f / T, "K8_us_per_step": 1e3 * ms_b / (T - 1),
                "K7_cluster_blocks": VD.window_cluster_size(S),
-               "K7_pr3_ms": ms_f_old, "K8_pr3_ms": ms_b_old,
                "K7_bound_ms": bf[0], "K7_bound_by": bf[1],
                "K8_bound_ms": bb[0], "K8_bound_by": bb[1], "plain_T": T_PLAIN}
         if label.startswith("tonet"):
@@ -1158,12 +1220,8 @@ def phase_seq_timing(dev, seq, baseline) -> dict:
             windows, lengths, resets = block_windows(log_obs, H)
             t1_w, m_w = VD.window_forward(log_B, log_pi, windows, lengths, resets)
             st = torch.argmax(t1_w, dim=1)
-            ms_wf, ms_wf_old = in_turns(
-                lambda: VD.window_forward(log_B, log_pi, windows, lengths, resets),
-                old_k7 and (lambda: old_k7(log_B, log_pi, windows, lengths, resets)), 5)
-            ms_wb, ms_wb_old = in_turns(
-                lambda: VD.window_backtrace(log_B, m_w, st, lengths),
-                old_k8 and (lambda: old_k8(log_B, m_w, st, lengths)), 5)
+            ms_wf = cuda_ms(lambda: VD.window_forward(log_B, log_pi, windows, lengths, resets), 5)
+            ms_wb = cuda_ms(lambda: VD.window_backtrace(log_B, m_w, st, lengths), 5)
             del m_w, windows
             ms_attempt = {h: cuda_ms(lambda: viterbi_sharded_time_blocks(
                 log_B, log_pi, log_obs, seq["mesh"], halo=h), 5)
@@ -1173,7 +1231,6 @@ def phase_seq_timing(dev, seq, baseline) -> dict:
             wf, wb = bounds("K7", S, lengths), bounds("K8", S, lengths)
             rec.update({"halo": H, "blocks": SEQ_BLOCKS,
                         "K7_windows_ms": ms_wf, "K8_windows_ms": ms_wb,
-                        "K7_windows_pr3_ms": ms_wf_old, "K8_windows_pr3_ms": ms_wb_old,
                         "K7_windows_bound_ms": wf[0], "K8_windows_bound_ms": wb[0],
                         "time_sharded_ms_per_halo_attempt": {int(h): ms for h, ms in ms_attempt.items()},
                         "time_sharded_decode_ms": ms_auto,
@@ -1184,15 +1241,17 @@ def phase_seq_timing(dev, seq, baseline) -> dict:
     return results
 
 
-def phase_path_shapes(dev, ctx, seq) -> dict:
+def phase_path_shapes(dev, ctx, seq, base=None) -> dict:
     """One timing per launch that the kernels line counts, at the shape that
     launch had, with its bound: {kernel: {"shapes": [...], "ms_sum",
-    "bound_ms_sum"}}. What a kernel costs the main path is ms_sum -
-    bound_ms_sum."""
+    "bound_ms_sum", "ms_sum_base"}}. What a kernel costs the main path is
+    ms_sum - bound_ms_sum. With a baseline, its K1, K2 and K9 in turns with
+    these at the same launches (equal to them), else ms_sum_base is null."""
     per = {k: [] for k in KERNEL_INFO}
 
-    def add(k, label, ms, b):
-        per[k].append({"shape": label, "ms": ms, "bound_ms": b[0], "bound_by": b[1]})
+    def add(k, label, ms, b, ms_old=None):
+        per[k].append({"shape": label, "ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                       "base_ms": ms_old})
 
     def argmax(t1):
         return torch.argmax(t1, dim=1).to(torch.int32)
@@ -1205,13 +1264,22 @@ def phase_path_shapes(dev, ctx, seq) -> dict:
         bs = VB.extract_banded_structure(st.transition_matrix) if kind == "banded" else None
         kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
         S, label = log_obs.shape[2], f"{kind} main path N={len(lengths)} T={log_obs.shape[1]}"
+        old = base if kind == "banded" else None
+        _, log_pi = prepare_log_params(st.transition_matrix, st.init_probs)
         out = {}
-        ms_f = cuda_ms(lambda: out.update(f=fwd(log_obs, lengths)), 5)
+        ms_f, ms_f_old = in_turns(lambda: out.update(f=fwd(log_obs, lengths)),
+                                  old and (lambda: old.k1(bs, log_pi, log_obs, lengths)), 5)
         t1, rows = out.pop("f")
-        ms_b = cuda_ms(lambda: bt(rows, argmax(t1), lengths), 5)
+        last = argmax(t1)
+        ms_b, ms_b_old = in_turns(lambda: out.update(b=bt(rows, last, lengths)),
+                                  old and (lambda: old.k2(bs, rows, last, lengths)), 5)
+        if old:
+            check(same_forward(old.k1(bs, log_pi, log_obs, lengths), (t1, rows), lengths)
+                  and same_states(old.k2(bs, rows, last, lengths), out.pop("b"), lengths),
+                  f"{label}: the baseline's K1/K2 give the same results")
         for _ in range(n):
-            add(kf, label, ms_f, bounds(kf, S, lengths, bs))
-            add(kb, label, ms_b, bounds(kb, S, lengths, bs))
+            add(kf, label, ms_f, bounds(kf, S, lengths, bs), ms_f_old)
+            add(kb, label, ms_b, bounds(kb, S, lengths, bs), ms_b_old)
     # K5/K6: the fused CLI's logits for each method, K5 also the imm
     # DecoderSetup's; K9: the fused decode API on the CLI's batch
     for lgs, setups in ((ctx["cli_logits"], [ctx["cli_setups"][m] for m in METHODS]),
@@ -1235,9 +1303,15 @@ def phase_path_shapes(dev, ctx, seq) -> dict:
                 _, log_pi = prepare_log_params(st.transition_matrix, st.init_probs)
                 o_bytes, o_ops = obs_work(n_bins, obs["spw"], int(lengths.sum()),
                                           int((peaks & in_len[..., None]).sum()), softmax)
-                add("K9", label, cuda_ms(lambda: VB.banded_forward_obs(
-                    bs, log_pi, batch, lengths, obs), 5),
-                    bound(o_bytes, work("K1", n_bins + 1, lengths, bs)[1] + o_ops))
+                res = {}
+                ms, ms_old = in_turns(
+                    lambda: res.update(f=VB.banded_forward_obs(bs, log_pi, batch, lengths, obs)),
+                    base and (lambda: base.k9(bs, log_pi, batch, lengths, obs)), 5)
+                if base:
+                    check(same_forward(base.k9(bs, log_pi, batch, lengths, obs), res["f"], lengths),
+                          f"{label}: the baseline's K9 gives the same t1_last and t1m1")
+                add("K9", label, ms, bound(o_bytes, work("K1", n_bins + 1, lengths, bs)[1] + o_ops),
+                    ms_old)
             del peaks
     # K7/K8: the time-sharded decode's windows at each halo it tried, then
     # the seam-stress fixture's at halos 16, 32 and 64
@@ -1257,7 +1331,10 @@ def phase_path_shapes(dev, ctx, seq) -> dict:
             bounds("K8", S, lengths))
     torch.cuda.empty_cache()
     res = {k: {"launches_timed": len(v), "ms_sum": sum(e["ms"] for e in v),
-               "bound_ms_sum": sum(e["bound_ms"] for e in v), "shapes": v} for k, v in per.items()}
+               "bound_ms_sum": sum(e["bound_ms"] for e in v),
+               "ms_sum_base": (sum(e["base_ms"] for e in v)
+                              if v and all(e["base_ms"] is not None for e in v) else None),
+               "shapes": v} for k, v in per.items()}
     emit({"phase": "path_shapes", **res})
     return res
 
@@ -1265,7 +1342,8 @@ def phase_path_shapes(dev, ctx, seq) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="tree of an earlier commit whose K7/K8 phase 4c times beside these")
+                    help="tree of an earlier commit whose K1, K2 and K9 phases 4, 4b and 4d "
+                         "time beside these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1280,7 +1358,9 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
+    base = Baseline(args.baseline) if args.baseline else None  # builds beside these
     logs = cuda_lib.build()
+    base = base and base.load()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1301,10 +1381,10 @@ def main(argv=None) -> int:
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
     phase_streaming(dev)
-    timing = phase_timing(dev, full_width_shapes())
-    timing.update(phase_serving(dev))
-    timing.update(phase_seq_timing(dev, seq, build_baseline(args.baseline)))
-    path = phase_path_shapes(dev, ctx, seq)
+    timing = phase_timing(dev, full_width_shapes(), base)
+    timing.update(phase_serving(dev, base))
+    timing.update(phase_seq_timing(dev, seq))
+    path = phase_path_shapes(dev, ctx, seq, base)
     check(all(path[k]["launches_timed"] == launches[k] for k in KERNEL_INFO),
           f"phase 4d timed one launch per counted launch: {launches}")
 
@@ -1316,7 +1396,8 @@ def main(argv=None) -> int:
         def entry(rec):
             return {"shape": f"{rec['shape']} N={rec['N']} T={rec['T']}",
                     "ms": rec[f"{k}_ms"], "plain_ms": rec[f"{k}_plain_ms"],
-                    "bound_ms": rec[f"{k}_bound_ms"], "bound_by": rec[f"{k}_bound_by"]}
+                    "bound_ms": rec[f"{k}_bound_ms"], "bound_by": rec[f"{k}_bound_by"],
+                    **({"base_ms": rec[f"{k}_base_ms"]} if f"{k}_base_ms" in rec else {})}
         main_rec = timing[headline[k]]
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
@@ -1324,6 +1405,7 @@ def main(argv=None) -> int:
             **entry(main_rec), "library_ms": None,
             "launches_on_fused_path": fused_launches[k],
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
+            "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()
                              if lbl != headline[k] and f"{k}_ms" in r],
         })

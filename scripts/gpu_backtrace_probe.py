@@ -1,7 +1,9 @@
 """Where a banded backtrace step's time goes on the GPU: the step designs of
-the port's K2 (viterbi_spl_tpu_torch/csrc/viterbi_banded.cu) and ablations
-of them, one warp per track, timed with CUDA events and counted in SM cycles
-(clock64 in track 0), on tonet's shaped 361-state matrix.
+the port's first K2 (one warp per track taking the argmax of each step, as
+viterbi_spl_tpu_torch/csrc/viterbi_banded.cu did before K2 became a
+backpointer pass and a chase) and ablations of them, one warp per track,
+timed with CUDA events and counted in SM cycles (clock64 in track 0), on
+tonet's shaped 361-state matrix.
 
     python3 scripts/gpu_backtrace_probe.py [--n 128] [--t 8192]
 
@@ -12,7 +14,7 @@ t1m1 rows through K2's cp.async ring unless said otherwise):
                five-round shuffle argmax
   clamped      every source loads its profile value at a clamped offset, no
                branch; redux argmax
-  split        the shipped design: all sources with their out-of-band value,
+  split        the design K2 shipped: all sources with their out-of-band value,
                then the in-band sources with their profile values (kept in
                shared memory); redux argmax
   split_l1     split with the profiles read through L1

@@ -289,8 +289,9 @@ VARIANTS = {
 }
 """),
     ],
-    "pass_only": [("  window_chase_kernel<<<N, 32, smem, st>>>(bp, start_states, lengths, states, W, Sp, stages);\n",
-                   "")],
+    "pass_only": [("""  return static_cast<int>(vspl_launch_chase(static_cast<const int*>(bp), start_states, lengths,
+                                            states, N, W, Sp, st));
+""", "  return 0;\n")],
 }
 K7_VARIANTS = ("shipped", "pair_store", "cluster16", "smem_table", "wait_cta", "test_wait")
 K8_VARIANTS = ("shipped", "pass_only")
@@ -300,7 +301,9 @@ def build_all() -> dict:
     """{variant: loaded library}, one nvcc per variant, all started together."""
     out_dir = cuda_lib.BUILD_DIR / "window_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    base = SOURCE.read_text()
+    # the shared header inlined, so that a variant can patch its mbarrier wait
+    base = SOURCE.read_text().replace('#include "viterbi_common.cuh"',
+                                      (cuda_lib.CSRC / "viterbi_common.cuh").read_text())
     procs = {}
     for name, subs in VARIANTS.items():
         src = base

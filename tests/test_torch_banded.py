@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from viterbi_spl_tpu.hmm import params as JP
 from viterbi_spl_tpu.hmm import viterbi_banded as JB
 from viterbi_spl_tpu.hmm.viterbi import NEG_PAD
+from viterbi_spl_tpu_torch.hmm import fixtures as FX
 from viterbi_spl_tpu_torch.hmm import params as TP
 from viterbi_spl_tpu_torch.hmm import viterbi_banded as TB
 from viterbi_spl_tpu_torch.hmm.oracle import viterbi_oracle_log
@@ -138,3 +139,91 @@ def test_wrappers_reject_bad_lengths(rng):
     for bad in ([0, 8], [8, 9], [8]):
         with pytest.raises(ValueError):
             TB.banded_forward(bs, prepare_log_params(A, pi)[1], log_obs, bad)
+
+
+@pytest.mark.parametrize("route", [None, "pass", "chain"])
+def test_backtrace_routes_give_the_plain_states_on_the_cpu(rng, route):
+    """banded_backtrace takes the routes "pass" and "chain" (None: the
+    rule's); a CPU tensor takes the plain version by any of them, and an
+    unknown route raises."""
+    A, pi, _ = _shaped(TP, _tracks(rng, 60), 60, 6)
+    bs = TB.extract_banded_structure(A)
+    lens = np.array([16, 1, 9], np.int32)
+    log_obs = torch.from_numpy(_log_obs(rng, 3, 16, 61))
+    t1, t1m1 = TB.banded_forward(bs, prepare_log_params(A, pi)[1], log_obs, lens)
+    last = torch.argmax(t1, dim=1).to(torch.int32)
+    want = TB.banded_backtrace_plain(bs, t1m1, last, lens)
+    assert torch.equal(TB.banded_backtrace(bs, t1m1, last, lens, route=route), want)
+    with pytest.raises(ValueError):
+        TB.banded_backtrace(bs, t1m1, last, lens, route="scan")
+
+
+@pytest.mark.parametrize("n_bins,d_max,N,T,voiced,route", [
+    (360, 14, 8, 8000, 1.0, "pass"),      # the decode CLI's batch
+    (360, 14, 8, 8000, 0.0, "pass"),
+    (360, 14, 64, 160, 0.5, "pass"),      # a streaming pool's push
+    (360, 14, 128, 32768, 1.0, "pass"),   # bench.py's headline: voiced paths
+    (360, 14, 128, 8192, 0.0, "chain"),   # its serving shape: unvoiced paths
+    (360, 14, 256, 32768, 1.0, "chain"),  # the pass's scratch would exceed 4 GiB
+    (721, 40, 64, 4096, 1.0, "chain"),    # jdc 722
+    (721, 40, 16, 4096, 0.0, "pass"),
+])
+def test_k2_route_at_the_benchmark_shapes(rng, n_bins, d_max, N, T, voiced, route):
+    """k2_route picks K2's faster route by the measured costs, reading the
+    last states' voiced share only where the choice depends on it."""
+    A, _, _ = _shaped(TP, _tracks(rng, n_bins), n_bins, d_max)
+    bs = TB.extract_banded_structure(A)
+    last = torch.full((N,), n_bins, dtype=torch.int32)
+    last[: round(voiced * N)] = n_bins // 2
+    assert TB.k2_route(bs, N, T, last) == route
+
+
+def _chase(bp, last, lengths):
+    """s_{t-1} = bp[n, t, s_t] from last[n] at frame lengths[n] - 1."""
+    states = np.zeros(bp.shape[:2], np.int64)
+    for n, T in enumerate(lengths):
+        s = int(last[n])
+        states[n, T - 1] = s
+        for t in range(T - 1, 0, -1):
+            s = int(bp[n, t, s])
+            states[n, t - 1] = s
+    return states
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """Bit-for-bit comparisons: PyTorch on one thread (ROADMAP section 3)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("n_bins,d_max,P", [(360, 14, 384), (721, 40, 768)])
+def test_backpointer_pass_then_chase_on_ties_matches_plain_and_pallas(
+        rng, one_cpu_thread, n_bins, d_max, P):
+    """K2's design in its plain version: every backpointer
+    (banded_backpointers_plain), then a chase over them, gives
+    banded_backtrace_plain's states, the tie fixture's path and
+    viterbi_backtrace_pallas_banded_batch's (interpreted) below each length,
+    on the tie fixture (equal maxima at every step: in band, in and out of
+    band either way round, at the unvoiced source)."""
+    A, _, _ = _shaped(TP, _tracks(rng, n_bins), n_bins, d_max)
+    S = n_bins + 1
+    bt = TB.extract_banded_structure(A)
+    lens = np.array([64, 1, 2, 40, 64, 33, 63, 17], np.int32)
+    t1m1, last, path = FX.tie_fixture(bt, rng, lens, 64)
+    bp = TB.banded_backpointers_plain(bt, torch.from_numpy(t1m1), lens)
+    assert bp.dtype == torch.int32 and bp.shape == (len(lens), 64, S)
+    got = _chase(bp.numpy(), last, lens)
+    want = TB.banded_backtrace_plain(bt, torch.from_numpy(t1m1), last, lens).numpy()
+    t1m1_j = np.full((len(lens), 64, P), NEG_PAD, np.float32)
+    t1m1_j[:, :, :S] = t1m1
+    st_j = np.asarray(JB.viterbi_backtrace_pallas_banded_batch(
+        JB.extract_banded_structure(A, P), jnp.asarray(t1m1_j), last, lens,
+        block_frames=32, interpret=True,
+    ))
+    for n, L in enumerate(lens):
+        np.testing.assert_array_equal(got[n, :L], path[n, :L])
+        np.testing.assert_array_equal(want[n, :L], path[n, :L])
+        np.testing.assert_array_equal(st_j[n, :L], path[n, :L])

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card: K1-K4
 with exact equality of t1_last, of t1m1 up to each track's length, and of
-the decoded states, with ragged lengths and N not a multiple of 8; K5/K6
+the decoded states, with ragged lengths and N not a multiple of 8; K2 also
+on a tie fixture whose chase meets equal maxima at every step; K5/K6
 under the observation contract (hmm/obs_fused.py::obs_contract); K9
-bit-equal to K5/K6 -> K1; K7/K8 (the window kernels) exactly, with reset
+bit-equal to K5/K6 -> K1, at its own producer and ring layout and at
+others; K7/K8 (the window kernels) exactly, with reset
 rows, at 8- and 16-block cluster sizes and over more windows than one wave
 holds, and the time-block decode's launches over a mesh of blocks on one
 card.
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from viterbi_spl_tpu_torch.hmm import fixtures as FX
 from viterbi_spl_tpu_torch.hmm import obs_fused as OF
 from viterbi_spl_tpu_torch.hmm import params as TP
 from viterbi_spl_tpu_torch.hmm import viterbi_banded as TB
@@ -78,6 +81,65 @@ def test_cuda_k1_k2_match_plain(cuda, rng, n_bins, d_max):
     np.testing.assert_array_equal(
         st_k[0].cpu().numpy(), viterbi_oracle_log(log_B, log_pi, log_obs[0].numpy())
     )
+
+
+K2_LENGTHS = np.array([160, 1, 2, 97, 160, 33, 2, 159, 64, 17, 120], np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins,d_max", [(360, 14), (721, 40), (300, 50)])
+@pytest.mark.parametrize("fixture", ["forward", "ties"])
+@pytest.mark.parametrize("route", ["pass", "chain"])
+def test_cuda_k2_ragged_and_ties_match_plain(cuda, rng, n_bins, d_max, fixture, route):
+    """K2 against its plain version over 11 ragged tracks (lengths 1 and 2
+    among them), by both routes (the backpointer pass then the chase, and a
+    chain per track): on K1's t1m1 of random and tie-heavy observations, and
+    on the tie fixture, where every step of each chase meets two equal
+    maxima (in band, in and out of band either way round, at the unvoiced
+    source) and the states must be the fixture's path. The pass keeps 32
+    band values a thread in registers at d_max 14, 96 at d_max 40, and reads
+    them through L1 at d_max 50."""
+    A, pi = _shaped(rng, n_bins, d_max)
+    _, log_pi = prepare_log_params(A, pi)
+    bs = TB.extract_banded_structure(A)
+    N, T = len(K2_LENGTHS), 160
+    if fixture == "ties":
+        t1m1, last, path = FX.tie_fixture(bs, rng, K2_LENGTHS, T)
+        t1m1 = torch.from_numpy(t1m1)
+    else:
+        log_obs = _log_obs(rng, N, T, n_bins + 1)
+        t1, t1m1 = TB.banded_forward_plain(bs, torch.from_numpy(log_pi), log_obs, K2_LENGTHS)
+        last, path = torch.argmax(t1, dim=1).to(torch.int32).numpy(), None
+    launches = TB.banded_backtrace.launches
+    st_k = TB.banded_backtrace(bs, t1m1.to(cuda), torch.from_numpy(last).to(cuda), K2_LENGTHS,
+                               route=route)
+    torch.cuda.synchronize()
+    assert TB.banded_backtrace.launches == launches + 1
+    st_p = TB.banded_backtrace_plain(bs, t1m1, last, K2_LENGTHS)
+    for n, L in enumerate(K2_LENGTHS):
+        np.testing.assert_array_equal(st_k[n, :L].cpu().numpy(), st_p[n, :L].numpy())
+        if path is not None:
+            np.testing.assert_array_equal(st_p[n, :L].numpy(), path[n, :L])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pass", "chain"])
+def test_cuda_k2_more_tracks_than_a_grid_dimension(cuda, rng, route):
+    """K2 over 65,537 short ragged tracks by both routes (the pass puts
+    tracks on grid.z, at most 65,535 a launch; the chain on grid.x) equals
+    its plain version."""
+    A, pi = _shaped(rng, 60, 6)
+    _, log_pi = prepare_log_params(A, pi)
+    bs = TB.extract_banded_structure(A)
+    N, T = 65537, 5
+    lengths = rng.integers(1, T + 1, N).astype(np.int32)
+    log_obs = torch.from_numpy(rng.uniform(-20.0, 0.0, (N, T, 61)).astype(np.float32)).to(cuda)
+    t1, t1m1 = TB.banded_forward(bs, log_pi, log_obs, lengths)
+    last = torch.argmax(t1, dim=1).to(torch.int32)
+    st_k = TB.banded_backtrace(bs, t1m1, last, lengths, route=route)
+    st_p = TB.banded_backtrace_plain(bs, t1m1, last, lengths)
+    mask = torch.arange(T, device=cuda)[None, :] < torch.from_numpy(lengths).to(cuda)[:, None]
+    assert torch.equal(torch.where(mask, st_k, 0), torch.where(mask, st_p, 0))
 
 
 @pytest.mark.gpu
@@ -170,26 +232,62 @@ def test_cuda_k5_k6_match_plain(cuda, rng, n_bins, spw, method):
     assert res["ok"], res
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_bins,d_max,spw", [(360, 14, 5), (721, 40, 16)])
-@pytest.mark.parametrize("method", METHODS)
-def test_cuda_k9_bit_equal_k5_k6_then_k1(cuda, rng, n_bins, d_max, spw, method):
-    """K9 (the observations inside the forward) bit-equal to K5/K6 -> K1:
-    t1_last, and t1m1 up to each track's length, with ragged lengths."""
+# K9's tracks: T=96 a multiple of its rings (32 frames at 361 states, 16 at
+# 722), T=101 not; lengths shorter than either ring among them
+K9_LENGTHS = {96: LENGTHS, 101: np.array([101, 1, 2, 15, 31, 33, 100], np.int32)}
+
+
+def _k9_against_k5_k6_k1(cuda, rng, n_bins, d_max, spw, method, T):
     A, pi = _shaped(rng, n_bins, d_max)
     _, log_pi = prepare_log_params(A, pi)
     bs = TB.extract_banded_structure(A)
-    T = 96
-    lg = torch.from_numpy(OF.contract_logits(rng, len(LENGTHS), T, n_bins)).to(cuda)
+    lengths = K9_LENGTHS[T]
+    lg = torch.from_numpy(OF.contract_logits(rng, len(lengths), T, n_bins)).to(cuda)
     obs = _obs_cfg(rng, method, n_bins, spw)
     launches = TB.banded_forward_obs.launches
-    t1_9, t1m1_9 = TB.banded_forward_obs(bs, log_pi, lg, LENGTHS, obs)
+    t1_9, t1m1_9 = TB.banded_forward_obs(bs, log_pi, lg, lengths, obs)
     assert TB.banded_forward_obs.launches == launches + 1
-    t1_1, t1m1_1 = TB.banded_forward(bs, log_pi, OF.log_obs(lg, obs), LENGTHS)
+    t1_1, t1m1_1 = TB.banded_forward(bs, log_pi, OF.log_obs(lg, obs), lengths)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(t1_9.cpu().numpy(), t1_1.cpu().numpy())
-    for n, L in enumerate(LENGTHS):
+    for n, L in enumerate(lengths):
         np.testing.assert_array_equal(t1m1_9[n, :L].cpu().numpy(), t1m1_1[n, :L].cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [96, 101])
+@pytest.mark.parametrize("n_bins,d_max,spw", [(360, 14, 5), (721, 40, 16)])
+@pytest.mark.parametrize("method", METHODS)
+def test_cuda_k9_bit_equal_k5_k6_then_k1(cuda, rng, n_bins, d_max, spw, method, T):
+    """K9 (the observations inside the forward) bit-equal to K5/K6 -> K1:
+    t1_last, and t1m1 up to each track's length, with ragged lengths."""
+    _k9_against_k5_k6_k1(cuda, rng, n_bins, d_max, spw, method, T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(1, 2), (2, 3), (7, 7), (3, 40)])
+@pytest.mark.parametrize("n_bins,d_max,spw,method", [(360, 14, 5, "shaun"),
+                                                     (721, 40, 16, "softmax-scaled")])
+def test_cuda_k9_any_layout_bit_equal(cuda, rng, monkeypatch, layout, n_bins, d_max, spw,
+                                      method):
+    """K9 at producer and ring layouts other than its rule's (one producer
+    and a two-frame ring, a ring as long as the producers' stride, a ring
+    longer than most tracks): still bit-equal to K5/K6 -> K1."""
+    monkeypatch.setattr(TB, "k9_layout", lambda S, model: layout)
+    _k9_against_k5_k6_k1(cuda, rng, n_bins, d_max, spw, method, 101)
+
+
+@pytest.mark.gpu
+def test_cuda_k9_refuses_a_ring_shorter_than_its_producers(cuda, rng, monkeypatch):
+    """A ring of fewer frames than producers would let a producer's parity
+    wait on a slot alias an older phase: the launch is refused."""
+    A, pi = _shaped(rng, 60, 6)
+    bs = TB.extract_banded_structure(A)
+    lg = torch.from_numpy(OF.contract_logits(rng, 2, 16, 60)).to(cuda)
+    monkeypatch.setattr(TB, "k9_layout", lambda S, model: (7, 5))
+    with pytest.raises(RuntimeError, match="K9"):
+        TB.banded_forward_obs(bs, prepare_log_params(A, pi)[1], lg, [16, 9],
+                              _obs_cfg(rng, "shaun", 60, 5))
 
 
 @pytest.mark.gpu

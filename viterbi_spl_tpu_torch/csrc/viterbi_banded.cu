@@ -42,31 +42,57 @@
 // shorten the loop's latency. (Unrolling the three-load loop with a masked
 // trip count is 1.8x slower on the H100; PERF.md.)
 //
-// K2 is a pointer chase: T dependent argmax steps per track, each over one
-// t1m1 row (S floats) plus a rebuilt logB row, so its floor is T times the
-// latency of one step. One warp per track; t1m1 rows stream through a
-// VSPL_RING-row shared-memory ring filled by cp.async, so each row is
-// requested VSPL_RING steps before it is used. The step keeps the loads
-// that depend on the current state few and off branches: every source is
-// first taken with its out-of-band value (loads that need only the row),
-// then the 2 d_max + 1 in-band sources with their profile values, one per
-// lane; the argmax is two warp reductions (redux.sync). (A profile load
-// per source behind a branch serialises the loads;
-// scripts/gpu_backtrace_probe.py measures the alternatives.)
-
+// K2 has two routes behind one entry, chosen by the caller from the work
+// they cost (hmm/viterbi_banded.py::k2_route). A chain that takes the
+// argmax over a t1m1 row at every step has that argmax (and the row's
+// arrival) on its chain of T dependent steps (~0.5-0.9 us a step on one
+// warp, banded_chain_kernel), whatever the number of tracks; it is kept for
+// many tracks at many states, and near the crossover for mostly unvoiced
+// paths (its step skips the in-band scan at the unvoiced state). Otherwise
+// K2 is two kernels, as K8 is:
+//   * the backpointer pass writes bp[n, t, s] = the first-max argmax of
+//     t1m1[n, t, :] + logB[s, :] for every frame 1 <= t < len and state s
+//     over the whole card, tiled (frames x states) a block, from K2's exact
+//     split of the row: two first-max argmaxes per row over all sources
+//     with their out-of-band values, A_v (voiced sources at LOG_TINY, the
+//     unvoiced one at log c_uv) and A_u (log c_vu, log c_uu); the unvoiced
+//     target takes A_u, a voiced target the first maximum of its 2 d_max + 1
+//     in-band candidates t1m1[x] + bv[cls[x - s + d_max]][x] folded with
+//     (A_v, its value) by the full comparison (larger value, then lower
+//     index) — its band column in registers, the row in shared memory. An
+//     in-band source's out-of-band value is never above its in-band one, so
+//     this is the row's own first maximum, bit for bit. It is bound by
+//     compare-and-select issue (three half-rate operations a candidate):
+//     it does ~2 d_max + 1 times the work of a per-track chain, spread over
+//     the whole card, so it wins where a chain per track leaves most SMs
+//     idle (few tracks) and loses where many tracks already fill the card
+//     (PERF.md). Rows at or beyond a track's length are skipped (K1 leaves
+//     them unwritten). bp is int16 (S <= 1024), rows padded to Sp = S
+//     rounded up to 8 (16 bytes);
+//   * the chase: one thread per track walks s = bp[t][s] over 16-row chunks
+//     brought by bulk copies into an mbarrier ring (vspl_chase_kernel,
+//     viterbi_common.cuh, shared with K8); a step is one shared-memory load.
 //
 // K9 replaces the same TPU kernel with obs_mode=("shaun"|"softmax", spw)
-// (viterbi_banded.py:247, :266-287): K1 whose observation ring is filled
-// by the block's own warps, which compute the ring's frames from the raw
-// logits with obs_common.cuh's per-frame functions instead of copying
-// log_obs. It is K1's kernel instantiated with kObs set: the DP code is
-// the same code, and the observations are the bits K5/K6 would write, so
-// K9 equals K5/K6 -> K1 bit for bit. It saves K5/K6's write and K1's read
-// of the [N, T, S] log observations. The obs work is kept off most frames:
-// every G = min(warps, VSPL_RING / 2) frames, warps 0..G-1 each compute
-// one frame of the group G to 2G - 1 frames ahead (from logits staged by
-// cp.async G frames before), so one frame's obs latency is spread over G
-// DP frames.
+// (viterbi_banded.py:247, :266-287): K1 whose observations are computed in
+// the block from the raw logits with obs_common.cuh's per-frame function
+// instead of read from log_obs. The DP warps run K1's code (the same
+// template, kObs set) and synchronise among themselves with a named barrier;
+// P producer warps of their own compute whole frames into a
+// ring of R frames in shared memory, producer p the frames p, p + P, ...,
+// each frame's logits gathered through the reflect map by cp.async one frame
+// ahead. A slot is published on its "full" mbarrier (every producer lane
+// arrives after its stores) and released on its "empty" one (one DP thread
+// arrives after the frame barrier that follows the slot's last read); the DP
+// threads wait on frame t's full barrier just before they add its
+// observation, so they stall only when the producers fall behind. Every wait
+// traps after 2^28 tries. The observations are the bits K5/K6 write (the same
+// function), so K9 equals K5/K6 -> K1 bit for bit; it saves K5/K6's write
+// and K1's read of the [N, T, S] log observations. What bounds it: K1's
+// chain of frames, and the producers' issue slots taken from it (a producer
+// warp takes ~7,200 SM cycles over a 361-state frame, the DP ~1,150). P and
+// R (R >= P) come from the caller (hmm/viterbi_banded.py::k9_layout);
+// log_prior sits in shared memory.
 
 #include "obs_common.cuh"
 
@@ -74,6 +100,8 @@
 #define VSPL_BANDED_SMEM_BUDGET (200 * 1024)
 // In-band offsets a K1 thread can keep in registers.
 #define VSPL_BAND_REGS 32
+// Threads of a K1/K9 block at most (K9: the DP warps and the producers).
+#define VSPL_FORWARD_THREADS 1024
 
 // Floats of one padded K1 carry row.
 __host__ __device__ inline int vspl_carry_stride(int S, int d_max) {
@@ -84,22 +112,62 @@ extern "C" const char* vspl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K9's group: the warps that compute observations, every that many frames.
-__host__ __device__ inline int vspl_obs_group(int threads) {
-  return min(threads / 32, VSPL_RING / 2);
+// ---------------------------------------------------------------------------
+// K1 and K9
+// ---------------------------------------------------------------------------
+
+// The DP warps' frame barrier: the whole block for K1, a named barrier over
+// the DP warps alone for K9 (its producers never join it).
+template <int kObs>
+__device__ __forceinline__ void vspl_dp_sync(int dp_threads) {
+  if constexpr (kObs == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;\n" ::"r"(dp_threads) : "memory");
 }
 
-// K9's block: at most 768 threads (S <= 768), so that the obs code has
-// registers to spare.
-#define VSPL_K9_THREADS 768
+// K9's producer warp pw of P: frames pw, pw + P, ... < len into ring slot
+// r % R. The next frame's logits are gathered (reflect map, cp.async) while
+// this one is computed; a slot is written once the DP has released its
+// previous frame (empty), and published by every lane's arrival (full).
+template <int kModel>
+__device__ void banded_obs_producer(const VsplObsArgs& a, const float* logits,
+                                    const int* idx_s, float* stage, float* ring,
+                                    unsigned long long* full, unsigned long long* empty,
+                                    int S, int R, int P, int pw, int len, int lane) {
+  const int n_stage = a.n_bins + 2 * a.spw;
+  if (pw < len)
+    vspl_stage_logits_async(stage, logits + static_cast<size_t>(pw) * a.n_bins, idx_s,
+                            n_stage, lane);
+  int b = 0;
+  for (int r = pw; r < len; r += P) {
+    const int rn = r + P;
+    if (rn < len)
+      vspl_stage_logits_async(stage + (1 - b) * n_stage,
+                              logits + static_cast<size_t>(rn) * a.n_bins, idx_s, n_stage, lane);
+    else
+      vspl_commit_copies();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // frame r's logits
+    __syncwarp();
+    const int slot = r % R, k = r / R;
+    if (k >= 1) vspl_mbar_wait<false>(vspl_smem_addr(&empty[slot]), (k - 1) & 1);
+    vspl_obs_frame<kModel>(stage + b * n_stage, ring + slot * S, a, lane);
+    vspl_mbar_arrive(vspl_smem_addr(&full[slot]));
+    __syncwarp();  // every lane has read stage b before it is refilled
+    b ^= 1;
+  }
+  vspl_wait_all_rows();
+}
 
 // kRegBand (2 d_max + 1 <= VSPL_BAND_REGS): each thread keeps its own band
 // column in registers and reads one carry value per candidate; otherwise
 // it reads the class index, the profile and the carry value per candidate.
-// kObs: 0 reads log_obs (K1); VSPL_OBS_SHAUN / VSPL_OBS_SOFTMAX computes the
-// observations from oa.logits (K9; log_obs unused).
+// kObs: 0 reads log_obs (K1, R = VSPL_RING); VSPL_OBS_SHAUN /
+// VSPL_OBS_SOFTMAX computes the observations from oa.logits (K9; log_obs
+// unused) in the producer warps beyond the round_up(S, 32) DP threads, into
+// a ring of R frames.
 template <bool kRegBand, int kObs>
-__global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_kernel(
+__global__ void __launch_bounds__(VSPL_FORWARD_THREADS) banded_forward_kernel(
     const float* __restrict__ log_obs,   // [N, T, S]
     const float* __restrict__ bv,        // [n_classes, S] source profiles
     const int* __restrict__ cls,         // [2 d_max + 1] class of offset d
@@ -108,37 +176,62 @@ __global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_
     float* __restrict__ t1m1,            // [N, T, S]: row t = T1[t-1], row 0 = 0
     float* __restrict__ t1_last,         // [N, S]
     int T, int S, int d_max, int n_classes, int bv_in_smem, float log_tiny,
-    float log_c_uv, float log_c_vu, float log_c_uu, VsplObsArgs oa) {
-  extern __shared__ float smem[];
+    float log_c_uv, float log_c_vu, float log_c_uu, VsplObsArgs oa, int R) {
+  extern __shared__ __align__(16) unsigned long long smem_u64[];
   const int W = 2 * d_max + 1;
   const int n = S - 1;  // the unvoiced state
   // two carry rows, each with d_max zero slots before it and
   // VSPL_BAND_REGS after it, so every unrolled in-band read stays in its row
   const int stride = vspl_carry_stride(S, d_max);
-  // K9: the reflect map and each obs warp's staged logits
+  const int dp_warps = (S + 31) >> 5;
+  const int dp_threads = dp_warps * 32;
+  // K9: the reflect map, the log priors and each producer's two staged frames
   const int n_stage = kObs ? oa.n_bins + 2 * oa.spw : 0;
-  const int G = kObs ? vspl_obs_group(blockDim.x) : 0;
-  float* buf = smem;                                  // [2][stride]
+  const int n_prior = kObs == VSPL_OBS_SOFTMAX ? oa.n_bins : 0;
+  const int P = kObs ? static_cast<int>(blockDim.x >> 5) - dp_warps : 0;
+  unsigned long long* full = smem_u64;                 // K9: [R]
+  unsigned long long* empty = full + (kObs ? R : 0);   // K9: [R]
+  float* buf = reinterpret_cast<float*>(empty + (kObs ? R : 0));  // [2][stride]
   float* wmax = buf + 2 * stride;                     // [2][32] warp voiced maxima
-  float* obs_ring = wmax + 2 * VSPL_MAX_WARPS;        // [VSPL_RING][S] observations
-  int* cls_s = reinterpret_cast<int*>(obs_ring + VSPL_RING * S);  // [W]
+  float* obs_ring = wmax + 2 * VSPL_MAX_WARPS;        // [R][S] observations
+  int* cls_s = reinterpret_cast<int*>(obs_ring + R * S);           // [W]
   int* idx_s = cls_s + W;                                          // K9: [n_stage]
-  float* stage_s = reinterpret_cast<float*>(idx_s + n_stage);      // K9: [G][n_stage]
-  float* bv_s = stage_s + G * n_stage;                             // [C][S]
+  float* prior_s = reinterpret_cast<float*>(idx_s + n_stage);      // K9: [n_prior]
+  float* stage_s = prior_s + n_prior;                              // K9: [P][2][n_stage]
+  float* bv_s = stage_s + 2 * P * n_stage;                         // [C][S]
   const float* prof = bv_in_smem ? bv_s : bv;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int nwarps = dp_warps;
   const int track = blockIdx.x;
-  if constexpr (kObs != 0)
+  if constexpr (kObs != 0) {
+    if (tid == 0)
+      for (int i = 0; i < R; ++i) {
+        vspl_mbar_init(vspl_smem_addr(&full[i]), 32);
+        vspl_mbar_init(vspl_smem_addr(&empty[i]), 1);
+      }
     for (int i = tid; i < n_stage; i += blockDim.x) idx_s[i] = oa.idx[i];
+    for (int i = tid; i < n_prior; i += blockDim.x) prior_s[i] = oa.log_prior[i];
+  }
   for (int i = tid; i < 2 * stride; i += blockDim.x) buf[i] = 0.0f;
   for (int i = tid; i < W; i += blockDim.x) cls_s[i] = cls[i];
   if (bv_in_smem)
     for (int i = tid; i < n_classes * S; i += blockDim.x) bv_s[i] = bv[i];
   __syncthreads();
+
+  const int len = lengths[track];
+  if constexpr (kObs != 0) {
+    if (warp >= dp_warps) {
+      VsplObsArgs a = oa;
+      if (kObs == VSPL_OBS_SOFTMAX) a.log_prior = prior_s;
+      banded_obs_producer<kObs>(a, oa.logits + static_cast<size_t>(track) * T * oa.n_bins,
+                                idx_s, stage_s + 2 * (warp - dp_warps) * n_stage, obs_ring, full,
+                                empty, S, R, P, warp - dp_warps, len, lane);
+      return;
+    }
+  }
 
   // band[d][s] = logB[s, s + d] for the voiced sources of this target,
   // -inf elsewhere (such a candidate never wins: the seed is finite)
@@ -152,33 +245,13 @@ __global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_
     }
   }
 
-  const int len = lengths[track];
   const size_t base = static_cast<size_t>(track) * T * S;
   const float* obs = log_obs + base;
   float* out = t1m1 + base;
   const bool real = tid < S;
-  // K9: this track's logits, and this warp's staging row when it is an obs warp
-  const float* logits = kObs ? oa.logits + static_cast<size_t>(track) * T * oa.n_bins : nullptr;
-  float* stage = stage_s + warp * n_stage;
-
-  if constexpr (kObs != 0) {
-    // frames 0 .. 2G-1 into the ring now; frame 2G + w's logits start to
-    // copy for the loop's first group
-    if (warp < G) {
-      for (int r = warp; r < min(2 * G, len); r += G) {
-        vspl_stage_logits(stage, logits + static_cast<size_t>(r) * oa.n_bins, idx_s, n_stage,
-                          lane);
-        __syncwarp();
-        vspl_obs_frame<kObs>(stage, obs_ring + (r % VSPL_RING) * S, oa, lane);
-        __syncwarp();
-      }
-      const int r = 2 * G + warp;
-      if (r < len)
-        vspl_stage_logits_async(stage, logits + static_cast<size_t>(r) * oa.n_bins, idx_s,
-                                n_stage, lane);
-    }
-    __syncthreads();
-  }
+  // K9: frame t's ring slot and the parity of its full barrier's phase
+  int k9_slot = 0, k9_phase = 0;
+  if constexpr (kObs != 0) vspl_mbar_wait<false>(vspl_smem_addr(&full[0]), 0);
 
   float cur = -CUDART_INF_F;
   if (real) {
@@ -192,7 +265,7 @@ __global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_
   // in-band offsets whose source x = s + d is a voiced state
   const int d_lo = max(-d_max, -tid);
   const int d_hi = min(d_max, n - 1 - tid);
-  // each thread's observations stream through a VSPL_RING-frame ring in
+  // K1: each thread's observations stream through a VSPL_RING-frame ring in
   // shared memory, requested VSPL_RING frames ahead: a frame takes less
   // than a device-memory load
   if constexpr (kObs == 0)
@@ -202,14 +275,30 @@ __global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_
   int p = 0;
   for (int t = 1; t < len; ++t) {
     const int slot = (t % VSPL_RING) * S + tid;
-    float obs_t;
+    float obs_t = 0.0f;
     if constexpr (kObs == 0) {
       vspl_wait_oldest_row();  // this thread's observation of frame t
       obs_t = real ? obs_ring[slot] : 0.0f;
     }
-    __syncthreads();
-    // K9: frame t was written by another warp at least one barrier ago
-    if constexpr (kObs != 0) obs_t = real ? obs_ring[slot] : 0.0f;
+    vspl_dp_sync<kObs>(dp_threads);
+    if constexpr (kObs != 0) {
+      // every DP thread has read frame t - 1: its slot goes back to the
+      // producers; then frame t's slot
+      if (tid == 0) vspl_mbar_arrive(vspl_smem_addr(&empty[k9_slot]));
+      if (++k9_slot == R) {
+        k9_slot = 0;
+        k9_phase ^= 1;
+      }
+    }
+    // K9: frame t's observation, waited for only when it is needed
+    auto obs_now = [&]() {
+      if constexpr (kObs != 0) {
+        vspl_mbar_wait<false>(vspl_smem_addr(&full[k9_slot]), k9_phase);
+        return obs_ring[k9_slot * S + tid];
+      } else {
+        return obs_t;
+      }
+    };
     const float* prev = buf + p * stride + d_max;
     // the voiced maximum of the previous row, from the warps' maxima
     const float max_voiced =
@@ -233,9 +322,9 @@ __global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_
         }
       }
       acc = fmaxf(acc, fmaxf(max_voiced + log_tiny, prev_uv + log_c_uv));
-      nv = acc + obs_t;
+      nv = acc + obs_now();
     } else if (tid == n) {
-      nv = fmaxf(max_voiced + log_c_vu, prev_uv + log_c_uu) + obs_t;
+      nv = fmaxf(max_voiced + log_c_vu, prev_uv + log_c_uu) + obs_now();
     }
     if (real) {
       out[static_cast<size_t>(t) * S + tid] = prev[tid];
@@ -250,29 +339,114 @@ __global__ void __launch_bounds__(kObs ? VSPL_K9_THREADS : 1024) banded_forward_
       const int r = t + VSPL_RING;
       vspl_stage_one(obs_ring + slot, obs + static_cast<size_t>(min(r, len - 1)) * S + tid,
                      real && r < len);
-    } else if (t % G == 0 && warp < G) {
-      // frame r = t + G + warp into its slot, last read at frame r - VSPL_RING
-      // < t (before this frame's barrier) and next read at frame r > t
-      // (after the next barrier); then request frame r + G's logits
-      const int r = t + G + warp;
-      if (r < len) {
-        vspl_wait_all_rows();
-        __syncwarp();
-        vspl_obs_frame<kObs>(stage, obs_ring + (r % VSPL_RING) * S, oa, lane);
-        __syncwarp();
-        if (r + G < len)
-          vspl_stage_logits_async(stage, logits + static_cast<size_t>(r + G) * oa.n_bins,
-                                  idx_s, n_stage, lane);
-      }
     }
   }
-  vspl_wait_all_rows();
+  if constexpr (kObs == 0) vspl_wait_all_rows();
   if (real) t1_last[static_cast<size_t>(track) * S + tid] = cur;
 }
 
-// kRegs: row values per lane, S <= 32 kRegs (VSPL_DISPATCH_ROW_REGS).
+// Launches K1 (kObs = 0) or K9 with one block per track: round_up(S, 32)
+// DP threads, and for K9 32 * producers more, with a ring of `ring` frames.
+template <int kObs>
+static int launch_banded_forward(const float* log_obs, const VsplObsArgs& oa, int producers,
+                                 int ring, const float* bv, const int* cls,
+                                 const float* log_pi, const int* lengths, float* t1m1,
+                                 float* t1_last, int N, int T, int S, int d_max,
+                                 int n_classes, float log_tiny, float log_c_uv,
+                                 float log_c_vu, float log_c_uu, void* stream) {
+  const int dp_threads = ((S + 31) / 32) * 32;
+  const int threads = dp_threads + (kObs ? 32 * producers : 0);
+  if (threads > VSPL_FORWARD_THREADS || N <= 0 || T <= 0) return cudaErrorInvalidValue;
+  // a producer waits on a slot's empty barrier by parity, so it must never be
+  // two phases behind: its previous frame (P back) freed a slot R back, which
+  // covers the slot's use before last only when R >= P
+  if (kObs && (producers < 1 || ring < 2 || ring < producers)) return cudaErrorInvalidValue;
+  const int R = kObs ? ring : VSPL_RING;
+  const int W = 2 * d_max + 1;
+  const int n_stage = kObs ? oa.n_bins + 2 * oa.spw : 0;
+  const int n_prior = kObs == VSPL_OBS_SOFTMAX ? oa.n_bins : 0;
+  const size_t base_smem =
+      (kObs ? 2 * R * sizeof(unsigned long long) : 0) +
+      (2 * vspl_carry_stride(S, d_max) + 2 * VSPL_MAX_WARPS + static_cast<size_t>(R) * S) *
+          sizeof(float) +
+      W * sizeof(int) +
+      static_cast<size_t>(n_stage + n_prior + (kObs ? 2 * producers * n_stage : 0)) *
+          sizeof(float);
+  const size_t bv_bytes = static_cast<size_t>(n_classes) * S * sizeof(float);
+  const int bv_in_smem = base_smem + bv_bytes <= VSPL_BANDED_SMEM_BUDGET;
+  const size_t smem = base_smem + (bv_in_smem ? bv_bytes : 0);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto kernel = W <= VSPL_BAND_REGS ? banded_forward_kernel<true, kObs>
+                                    : banded_forward_kernel<false, kObs>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      log_obs, bv, cls, log_pi, lengths, t1m1, t1_last, T, S, d_max, n_classes,
+      bv_in_smem, log_tiny, log_c_uv, log_c_vu, log_c_uu, oa, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
+                                   const int* cls, const float* log_pi,
+                                   const int* lengths, float* t1m1,
+                                   float* t1_last, int N, int T, int S,
+                                   int d_max, int n_classes, float log_tiny,
+                                   float log_c_uv, float log_c_vu,
+                                   float log_c_uu, void* stream) {
+  const VsplObsArgs none{};
+  return launch_banded_forward<0>(log_obs, none, 0, 0, bv, cls, log_pi, lengths, t1m1,
+                                  t1_last, N, T, S, d_max, n_classes, log_tiny, log_c_uv,
+                                  log_c_vu, log_c_uu, stream);
+}
+
+// K9: model is VSPL_OBS_SHAUN (params: threshold, offset, scale) or
+// VSPL_OBS_SOFTMAX (params: vth, prior_uv, -; log_prior [n_bins]); logits
+// [N, T, S - 1], idx the [S - 1 + 2 spw] reflect map; `producers` warps
+// compute the observations into a ring of `ring` >= producers frames.
+extern "C" int vspl_banded_forward_obs(const float* logits, const int* idx,
+                                       const float* log_prior, int model, int spw,
+                                       float p0, float p1, float p2, int producers, int ring,
+                                       const float* bv, const int* cls, const float* log_pi,
+                                       const int* lengths, float* t1m1, float* t1_last,
+                                       int N, int T, int S, int d_max, int n_classes,
+                                       float log_tiny, float log_c_uv, float log_c_vu,
+                                       float log_c_uu, void* stream) {
+  const int n_bins = S - 1;
+  if (n_bins < 2 || n_bins > VSPL_OBS_MAX_BINS || spw < 1 || spw >= n_bins)
+    return cudaErrorInvalidValue;
+  const VsplObsArgs oa{logits, idx, log_prior, p0, p1, p2, log_tiny, n_bins, spw};
+  if (model == VSPL_OBS_SHAUN)
+    return launch_banded_forward<VSPL_OBS_SHAUN>(nullptr, oa, producers, ring, bv, cls, log_pi,
+                                                 lengths, t1m1, t1_last, N, T, S, d_max,
+                                                 n_classes, log_tiny, log_c_uv, log_c_vu,
+                                                 log_c_uu, stream);
+  if (model == VSPL_OBS_SOFTMAX)
+    return launch_banded_forward<VSPL_OBS_SOFTMAX>(nullptr, oa, producers, ring, bv, cls,
+                                                   log_pi, lengths, t1m1, t1_last, N, T, S,
+                                                   d_max, n_classes, log_tiny, log_c_uv,
+                                                   log_c_vu, log_c_uu, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
+
+// K2's chain, where many tracks fill the card: one warp per track walks its
+// T dependent argmax steps, the t1m1 rows streaming through a VSPL_RING-row
+// shared-memory ring filled by cp.async (each row requested VSPL_RING steps
+// before it is used). The step keeps the loads that depend on the current
+// state few and off branches: every source is first taken with its
+// out-of-band value (loads that need only the row), then the 2 d_max + 1
+// in-band sources with their profile values, one per lane; the argmax is
+// two warp reductions (redux.sync). kRegs: row values per lane, S <= 32
+// kRegs (VSPL_DISPATCH_ROW_REGS).
 template <int kRegs>
-__global__ void __launch_bounds__(32) banded_backtrace_kernel(
+__global__ void __launch_bounds__(32) banded_chain_kernel(
     const float* __restrict__ t1m1,        // [N, T, S]
     const float* __restrict__ bv,          // [n_classes, S]
     const int* __restrict__ cls,           // [2 d_max + 1]
@@ -361,106 +535,257 @@ __global__ void __launch_bounds__(32) banded_backtrace_kernel(
   vspl_wait_all_rows();
 }
 
-// Launches K1 (kObs = 0) or K9 with one block of round_up(S, 32) threads
-// per track.
-template <int kObs>
-static int launch_banded_forward(const float* log_obs, const VsplObsArgs& oa,
-                                 const float* bv, const int* cls, const float* log_pi,
-                                 const int* lengths, float* t1m1, float* t1_last, int N,
-                                 int T, int S, int d_max, int n_classes, float log_tiny,
-                                 float log_c_uv, float log_c_vu, float log_c_uu,
-                                 void* stream) {
-  const int threads = ((S + 31) / 32) * 32;
-  if (threads > (kObs ? VSPL_K9_THREADS : 1024) || N <= 0 || T <= 0)
-    return cudaErrorInvalidValue;
+// The backpointer pass's block: at most kThreads targets (one a thread) and
+// kFrames frames; W <= kBand band values a thread in registers (kBand 0:
+// each candidate reads its profile value through L1). A thread takes kIlp
+// frames at once, as independent argmax chains (4 measured fastest at 32
+// band registers, 1 at 96: scripts/gpu_banded_probe.py). Each candidate
+// costs an add and three half-rate compare-and-select operations, which
+// bound the pass.
+template <int kBand>
+struct VsplBpTile {
+  static constexpr int kThreads = kBand > VSPL_BAND_REGS ? 256 : 384;
+  static constexpr int kFrames = kBand > VSPL_BAND_REGS ? 16 : 32;
+  static constexpr int kPadHi = kBand > 0 ? kBand : 1;
+  static constexpr int kIlp = kBand > VSPL_BAND_REGS ? 1 : 4;
+};
+
+// Block (frame tile, state tile, track): the tile's t1m1 rows into shared
+// memory (cp.async), each padded with d_max zeros before and kPadHi after;
+// warp w takes the two out-of-band argmaxes of rows w, w + warps, ...; then
+// thread j writes bp for target s = tile start + j on every row t >= 1.
+template <int kBand>
+__global__ void __launch_bounds__(VsplBpTile<kBand>::kThreads, kBand > VSPL_BAND_REGS ? 2 : 1)
+    banded_backpointers_kernel(const float* __restrict__ t1m1,   // [N, T, S]
+                               const float* __restrict__ bv,     // [n_classes, S]
+                               const int* __restrict__ cls,      // [2 d_max + 1]
+                               const int* __restrict__ lengths,  // [N]
+                               short* __restrict__ bp,           // [N, T, Sp], rows 1 <= t < len
+                               int T, int S, int Sp, int d_max, int tile, float log_tiny,
+                               float log_c_uv, float log_c_vu, float log_c_uu) {
+  using Tile = VsplBpTile<kBand>;
+  constexpr int F = Tile::kFrames;
+  extern __shared__ __align__(16) float bp_smem[];
+  const int n = S - 1;
   const int W = 2 * d_max + 1;
-  const int n_stage = kObs ? oa.n_bins + 2 * oa.spw : 0;
-  const size_t base_smem =
-      (2 * vspl_carry_stride(S, d_max) + 2 * VSPL_MAX_WARPS + VSPL_RING * S) * sizeof(float) +
-      W * sizeof(int) +
-      static_cast<size_t>(n_stage) * (1 + (kObs ? vspl_obs_group(threads) : 0)) *
-          sizeof(float);
-  const size_t bv_bytes = static_cast<size_t>(n_classes) * S * sizeof(float);
-  const int bv_in_smem = base_smem + bv_bytes <= VSPL_BANDED_SMEM_BUDGET;
-  const size_t smem = base_smem + (bv_in_smem ? bv_bytes : 0);
-  auto kernel = W <= VSPL_BAND_REGS ? banded_forward_kernel<true, kObs>
-                                    : banded_forward_kernel<false, kObs>;
+  const int track = blockIdx.z;
+  const int t0 = blockIdx.x * F;
+  const int len = lengths[track];
+  if (t0 >= len) return;
+  const int nf = min(F, len - t0);
+  const int pads = d_max + Tile::kPadHi;
+  const int stride = S + pads;
+  float* rows = bp_smem;                             // [F][stride]: x at f * stride + d_max + x
+  float* vv_s = rows + F * stride;                   // [F] the value of A_v
+  int* av_s = reinterpret_cast<int*>(vv_s + F);      // [F] A_v
+  int* au_s = av_s + F;                              // [F] A_u
+  int* cls_s = au_s + F;                             // [W]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const float* src = t1m1 + (static_cast<size_t>(track) * T + t0) * S;
+  for (int f = 0; f < nf; ++f)
+    for (int x = tid; x < S; x += blockDim.x)
+      vspl_copy_async(rows + f * stride + d_max + x, src + static_cast<size_t>(f) * S + x);
+  vspl_commit_copies();
+  // the pads hold zeros: their candidates carry a -inf band value
+  for (int i = tid; i < F * pads; i += blockDim.x) {
+    const int f = i / pads, k = i % pads;
+    rows[f * stride + (k < d_max ? k : S + k)] = 0.0f;
+  }
+  for (int i = tid; i < W; i += blockDim.x) cls_s[i] = cls[i];
+  // band[j] = logB[s, s - d_max + j] for the voiced sources of a voiced
+  // target, -inf elsewhere
+  const int s = blockIdx.y * tile + tid;
+  float band[kBand > 0 ? kBand : 1];
+  if constexpr (kBand > 0) {
+#pragma unroll
+    for (int j = 0; j < kBand; ++j) {
+      const int x = s - d_max + j;
+      band[j] = (j < W && s < n && x >= 0 && x < n) ? __ldg(bv + __ldg(cls + j) * S + x)
+                                                    : -CUDART_INF_F;
+    }
+  }
+  vspl_wait_all_rows();
+  __syncthreads();
+
+  // per row, the first-max argmaxes over every source with its out-of-band
+  // value: A_v for a voiced target, A_u for the unvoiced one
+  for (int f = warp; f < nf; f += nwarps) {
+    const float* row = rows + f * stride + d_max;
+    float bv_v = -CUDART_INF_F, bv_u = -CUDART_INF_F;
+    int iv = 0x7fffffff, iu = 0x7fffffff;
+    for (int x = lane; x < S; x += 32) {  // ascending x: strict > keeps the first maximum
+      const float r = row[x];
+      const float cv = r + (x < n ? log_tiny : log_c_uv);
+      const float cu = r + (x < n ? log_c_vu : log_c_uu);
+      if (cv > bv_v) {
+        bv_v = cv;
+        iv = x;
+      }
+      if (cu > bv_u) {
+        bv_u = cu;
+        iu = x;
+      }
+    }
+    const int av = vspl_warp_argmax(bv_v, iv);
+    const int au = vspl_warp_argmax(bv_u, iu);
+    if (lane == 0) {
+      av_s[f] = av;
+      au_s[f] = au;
+      vv_s[f] = row[av] + (av < n ? log_tiny : log_c_uv);
+    }
+  }
+  __syncthreads();
+  if (tid >= tile || s >= S) return;
+
+  short* out = bp + (static_cast<size_t>(track) * T + t0) * Sp + s;
+  const int f_begin = t0 == 0 ? 1 : 0;
+  if (s == n) {
+    for (int f = f_begin; f < nf; ++f) out[static_cast<size_t>(f) * Sp] = static_cast<short>(au_s[f]);
+    return;
+  }
+  constexpr int U = Tile::kIlp;
+  for (int f0 = f_begin; f0 < nf; f0 += U) {
+    // per frame, the in-band candidates in ascending source order (strict >:
+    // the first maximum); a frame past the tile repeats the last one
+    float best[U];
+    int xb[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float* row = rows + min(f0 + u, nf - 1) * stride + d_max;
+      best[u] = -CUDART_INF_F;
+      xb[u] = s;
+      if constexpr (kBand > 0) {
+        const float* pv = row + s - d_max;  // pv[j] = t1m1[s - d_max + j]
+        int bj = d_max;
+#pragma unroll
+        for (int j = 0; j < kBand; ++j) {
+          const float v = pv[j] + band[j];
+          if (v > best[u]) {
+            best[u] = v;
+            bj = j;
+          }
+        }
+        xb[u] = s - d_max + bj;
+      } else {
+        for (int x = max(0, s - d_max); x <= min(n - 1, s + d_max); ++x) {
+          const float v = row[x] + __ldg(bv + cls_s[x - s + d_max] * S + x);
+          if (v > best[u]) {
+            best[u] = v;
+            xb[u] = x;
+          }
+        }
+      }
+    }
+    // then (A_v, its value) by the full comparison
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int f = f0 + u;
+      if (f < nf) {
+        const float vv = vv_s[f];
+        const int av = av_s[f];
+        const int b = (vv > best[u] || (vv == best[u] && av < xb[u])) ? av : xb[u];
+        out[static_cast<size_t>(f) * Sp] = static_cast<short>(b);
+      }
+    }
+  }
+}
+
+template <int kBand>
+static cudaError_t launch_banded_backpointers(const float* t1m1, const float* bv,
+                                              const int* cls, const int* lengths, short* bp,
+                                              int N, int T, int S, int Sp, int d_max,
+                                              float log_tiny, float log_c_uv, float log_c_vu,
+                                              float log_c_uu, cudaStream_t stream) {
+  using Tile = VsplBpTile<kBand>;
+  // state tiles of equal width, a multiple of 32
+  const int tiles = (S + Tile::kThreads - 1) / Tile::kThreads;
+  const int tile = ((S + tiles - 1) / tiles + 31) / 32 * 32;
+  const size_t smem =
+      (static_cast<size_t>(Tile::kFrames) * (S + d_max + Tile::kPadHi) + Tile::kFrames) *
+          sizeof(float) +
+      (2 * Tile::kFrames + 2 * d_max + 1) * sizeof(int);
+  auto kernel = banded_backpointers_kernel<kBand>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      log_obs, bv, cls, log_pi, lengths, t1m1, t1_last, T, S, d_max, n_classes,
-      bv_in_smem, log_tiny, log_c_uv, log_c_vu, log_c_uu, oa);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((T + Tile::kFrames - 1) / Tile::kFrames, tiles, N);
+  kernel<<<grid, tile, smem, stream>>>(t1m1, bv, cls, lengths, bp, T, S, Sp, d_max, tile,
+                                       log_tiny, log_c_uv, log_c_vu, log_c_uu);
+  return cudaGetLastError();
 }
 
-extern "C" int vspl_banded_forward(const float* log_obs, const float* bv,
-                                   const int* cls, const float* log_pi,
-                                   const int* lengths, float* t1m1,
-                                   float* t1_last, int N, int T, int S,
-                                   int d_max, int n_classes, float log_tiny,
-                                   float log_c_uv, float log_c_vu,
-                                   float log_c_uu, void* stream) {
-  const VsplObsArgs none{};
-  return launch_banded_forward<0>(log_obs, none, bv, cls, log_pi, lengths, t1m1, t1_last, N,
-                                  T, S, d_max, n_classes, log_tiny, log_c_uv, log_c_vu,
-                                  log_c_uu, stream);
+// The pass at the fewest band registers that hold 2 d_max + 1 offsets.
+static cudaError_t launch_pass(const float* t1m1, const float* bv, const int* cls,
+                               const int* lengths, short* bp, int N, int T, int S, int Sp,
+                               int d_max, float log_tiny, float log_c_uv, float log_c_vu,
+                               float log_c_uu, cudaStream_t st) {
+  const int W = 2 * d_max + 1;
+  if (W <= VSPL_BAND_REGS)
+    return launch_banded_backpointers<VSPL_BAND_REGS>(t1m1, bv, cls, lengths, bp, N, T, S, Sp,
+                                                      d_max, log_tiny, log_c_uv, log_c_vu,
+                                                      log_c_uu, st);
+  if (W <= 96)
+    return launch_banded_backpointers<96>(t1m1, bv, cls, lengths, bp, N, T, S, Sp, d_max,
+                                          log_tiny, log_c_uv, log_c_vu, log_c_uu, st);
+  return launch_banded_backpointers<0>(t1m1, bv, cls, lengths, bp, N, T, S, Sp, d_max, log_tiny,
+                                       log_c_uv, log_c_vu, log_c_uu, st);
 }
 
-// K9: model is VSPL_OBS_SHAUN (params: threshold, offset, scale) or
-// VSPL_OBS_SOFTMAX (params: vth, prior_uv, -; log_prior [n_bins]); logits
-// [N, T, S - 1], idx the [S - 1 + 2 spw] reflect map.
-extern "C" int vspl_banded_forward_obs(const float* logits, const int* idx,
-                                       const float* log_prior, int model, int spw,
-                                       float p0, float p1, float p2, const float* bv,
-                                       const int* cls, const float* log_pi,
-                                       const int* lengths, float* t1m1, float* t1_last,
-                                       int N, int T, int S, int d_max, int n_classes,
-                                       float log_tiny, float log_c_uv, float log_c_vu,
-                                       float log_c_uu, void* stream) {
-  const int n_bins = S - 1;
-  if (n_bins < 2 || n_bins > VSPL_OBS_MAX_BINS || spw < 1 || spw >= n_bins)
-    return cudaErrorInvalidValue;
-  const VsplObsArgs oa{logits, idx, log_prior, p0, p1, p2, log_tiny, n_bins, spw};
-  if (model == VSPL_OBS_SHAUN)
-    return launch_banded_forward<VSPL_OBS_SHAUN>(nullptr, oa, bv, cls, log_pi, lengths, t1m1,
-                                                 t1_last, N, T, S, d_max, n_classes, log_tiny,
-                                                 log_c_uv, log_c_vu, log_c_uu, stream);
-  if (model == VSPL_OBS_SOFTMAX)
-    return launch_banded_forward<VSPL_OBS_SOFTMAX>(nullptr, oa, bv, cls, log_pi, lengths,
-                                                   t1m1, t1_last, N, T, S, d_max, n_classes,
-                                                   log_tiny, log_c_uv, log_c_vu, log_c_uu,
-                                                   stream);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" int vspl_banded_backtrace(const float* t1m1, const float* bv,
-                                     const int* cls, const int* last_states,
-                                     const int* lengths, int* states, int N,
-                                     int T, int S, int d_max, int n_classes,
-                                     float log_tiny,
-                                     float log_c_uv, float log_c_vu,
-                                     float log_c_uu, void* stream) {
-  if (S > 32 * VSPL_ROW_REGS || N <= 0 || T <= 0) return cudaErrorInvalidValue;
+// K2's chain: one block of one warp per track.
+static cudaError_t launch_chain(const float* t1m1, const float* bv, const int* cls,
+                                const int* last_states, const int* lengths, int* states, int N,
+                                int T, int S, int d_max, int n_classes, float log_tiny,
+                                float log_c_uv, float log_c_vu, float log_c_uu,
+                                cudaStream_t stream) {
   const size_t base_smem = vspl_ring_bytes(S) + (2 * d_max + 1) * sizeof(int);
   const size_t bv_bytes = static_cast<size_t>(n_classes) * S * sizeof(float);
   const int bv_in_smem = base_smem + bv_bytes <= VSPL_BANDED_SMEM_BUDGET;
   const size_t smem = base_smem + (bv_in_smem ? bv_bytes : 0);
-  auto launch = [&](auto kernel) -> int {
+  auto launch = [&](auto kernel) -> cudaError_t {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
-    kernel<<<N, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        t1m1, bv, cls, last_states, lengths, states, T, S, d_max, n_classes,
-        bv_in_smem, log_tiny, log_c_uv, log_c_vu, log_c_uu);
-    return static_cast<int>(cudaGetLastError());
+    kernel<<<N, 32, smem, stream>>>(t1m1, bv, cls, last_states, lengths, states, T, S, d_max,
+                                    n_classes, bv_in_smem, log_tiny, log_c_uv, log_c_vu,
+                                    log_c_uu);
+    return cudaGetLastError();
   };
-#define VSPL_LAUNCH(R) launch(banded_backtrace_kernel<R>)
+#define VSPL_LAUNCH(R) launch(banded_chain_kernel<R>)
   return VSPL_DISPATCH_ROW_REGS(S, VSPL_LAUNCH);
 #undef VSPL_LAUNCH
+}
+
+// K2, S <= 1024: with bp (scratch [N, T, Sp] int16, Sp = S rounded up to a
+// multiple of 8) the backpointer pass into it, launched over at most 65535
+// tracks at a time (grid.z), then the chase from last_states at each
+// track's frame len - 1; with bp null, the chain. The caller chooses
+// (hmm/viterbi_banded.py::k2_route).
+extern "C" int vspl_banded_backtrace(const float* t1m1, const float* bv,
+                                     const int* cls, const int* last_states,
+                                     const int* lengths, int* states, short* bp,
+                                     int N, int T, int S, int d_max, int n_classes,
+                                     float log_tiny, float log_c_uv, float log_c_vu,
+                                     float log_c_uu, void* stream) {
+  if (S < 3 || S > 32 * VSPL_ROW_REGS || N <= 0 || T <= 0 || d_max < 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bp == nullptr)
+    return static_cast<int>(launch_chain(t1m1, bv, cls, last_states, lengths, states, N, T, S,
+                                         d_max, n_classes, log_tiny, log_c_uv, log_c_vu,
+                                         log_c_uu, st));
+  const int Sp = (S + 7) / 8 * 8;
+  for (int n0 = 0; n0 < N; n0 += 65535) {
+    const size_t frames = static_cast<size_t>(n0) * T;
+    const cudaError_t e = launch_pass(t1m1 + frames * S, bv, cls, lengths + n0, bp + frames * Sp,
+                                      min(65535, N - n0), T, S, Sp, d_max, log_tiny, log_c_uv,
+                                      log_c_vu, log_c_uu, st);
+    if (e != cudaSuccess) return e;
+  }
+  return static_cast<int>(vspl_launch_chase<short>(bp, last_states, lengths, states, N, T, Sp,
+                                                   st));
 }

@@ -69,7 +69,8 @@
 //   * the chase: one thread per window walks s = bp[t][s]; the bp rows do
 //     not depend on the state, so they arrive ahead in a ring of 16-row
 //     chunks, each one bulk copy (cp.async.bulk) completing on an mbarrier,
-//     and a step is one shared-memory load.
+//     and a step is one shared-memory load (vspl_chase_kernel in
+//     viterbi_common.cuh, shared with K2).
 
 #include <cooperative_groups.h>
 
@@ -88,19 +89,11 @@ namespace cg = cooperative_groups;
 #define VSPL_BP_FT 64
 #define VSPL_BP_FS 64
 #define VSPL_BP_KX 32
-// bp rows a bulk copy of the chase brings.
-#define VSPL_CHASE_ROWS 16
-// Shared memory the chase's ring may take.
-#define VSPL_CHASE_RING_BYTES (200 * 1024)
 
 extern "C" const char* vspl_error_string(int code) {
   if (code == VSPL_ERR_CLUSTER)
     return "no group of SMs can hold one thread-block cluster of the size this state count needs";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-__device__ __forceinline__ unsigned vspl_smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // The address of the same shared-memory location in cluster block `rank`.
@@ -109,35 +102,6 @@ __device__ __forceinline__ unsigned vspl_map_rank(const void* p, int rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(out) : "r"(vspl_smem_addr(p)), "r"(rank));
   return out;
-}
-
-__device__ __forceinline__ void vspl_mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// One arrival that also expects `bytes` more of transactions in this phase.
-__device__ __forceinline__ void vspl_mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed; acquire at cluster
-// scope, so that the stores other blocks made into this block are visible.
-// A wait that outlasts 2^28 tries (minutes) traps, so that a broken
-// invariant fails the launch instead of hanging the card.
-__device__ __forceinline__ void vspl_mbar_wait(unsigned bar, unsigned parity) {
-  for (unsigned tries = 0;; ++tries) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (tries == (1u << 28)) __trap();
-  }
 }
 
 // Stores v at `dst` in a cluster block's shared memory and completes 4 bytes
@@ -417,58 +381,6 @@ __global__ void __launch_bounds__(256) window_backpointers_kernel(
   }
 }
 
-// The chase: one thread per window walks s_{t-1} = bp[t][s_t] from its start
-// state at frame len - 1. Chunk c holds bp rows [c R, c R + R) (R =
-// VSPL_CHASE_ROWS); `stages` chunks are in flight in the ring, each one bulk
-// copy on its own mbarrier, and a chunk's stage is refilled with chunk
-// c - stages as soon as its last row has been read.
-__global__ void __launch_bounds__(32) window_chase_kernel(
-    const int* __restrict__ bp,            // [N, W, Sp]
-    const int* __restrict__ start_states,  // [N]
-    const int* __restrict__ lengths,       // [N]
-    int* __restrict__ states,              // [N, W]
-    int W, int Sp, int stages) {
-  extern __shared__ __align__(16) unsigned long long chase_smem[];
-  if (threadIdx.x != 0) return;
-  constexpr int R = VSPL_CHASE_ROWS;
-  unsigned long long* bar = chase_smem;                                // [stages]
-  int* ring = reinterpret_cast<int*>(chase_smem + 2 * ((stages + 1) / 2));  // [stages][R][Sp]
-  const int n = blockIdx.x;
-  const int len = lengths[n];
-  int s = start_states[n];
-  int* out = states + static_cast<size_t>(n) * W;
-  out[len - 1] = s;
-  if (len == 1) return;
-  const int* src = bp + static_cast<size_t>(n) * W * Sp;
-  for (int i = 0; i < stages; ++i) vspl_mbar_init(vspl_smem_addr(&bar[i]), 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  auto fetch = [&](int c) {
-    const int stage = c % stages;
-    const unsigned bytes = static_cast<unsigned>(min(R, len - c * R) * Sp) * 4u;
-    const unsigned b = vspl_smem_addr(&bar[stage]);
-    vspl_mbar_expect(b, bytes);
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        ::"r"(vspl_smem_addr(ring + static_cast<size_t>(stage) * R * Sp)),
-        "l"(src + static_cast<size_t>(c) * R * Sp), "r"(bytes), "r"(b)
-        : "memory");
-  };
-  const int last = (len - 1) / R;
-  for (int c = last; c >= 0 && c > last - stages; --c) fetch(c);
-  for (int c = last; c >= 0; --c) {
-    const int stage = c % stages;
-    vspl_mbar_wait(vspl_smem_addr(&bar[stage]), ((last - c) / stages) & 1);
-    const int* rows = ring + static_cast<size_t>(stage) * R * Sp;
-    const int hi = min(R - 1, len - 1 - c * R), lo = c == 0 ? 1 : 0;
-    for (int r = hi; r >= lo; --r) {
-      s = rows[r * Sp + s];
-      out[c * R + r - 1] = s;  // also: the load has completed before the refill
-    }
-    if (c >= stages) fetch(c - stages);
-  }
-}
-
 // K8: N windows of W rows, each chased from its start state at frame len - 1;
 // bp: scratch [N, W, Sp] int32, Sp = S rounded up to a multiple of 4.
 extern "C" int vspl_window_backtrace(const float* t1m1, const float* logB,
@@ -477,17 +389,13 @@ extern "C" int vspl_window_backtrace(const float* t1m1, const float* logB,
                                      void* stream) {
   const int Sp = (S + 3) / 4 * 4;
   const size_t chunk_bytes = static_cast<size_t>(VSPL_CHASE_ROWS) * Sp * sizeof(int);
-  const int stages = static_cast<int>(min(static_cast<size_t>(8), VSPL_CHASE_RING_BYTES / chunk_bytes));
-  if (N <= 0 || W <= 0 || S <= 0 || stages < 2) return cudaErrorInvalidValue;
+  if (N <= 0 || W <= 0 || S <= 0 || VSPL_CHASE_RING_BYTES / chunk_bytes < 2)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((W + VSPL_BP_FT - 1) / VSPL_BP_FT, (S + VSPL_BP_FS - 1) / VSPL_BP_FS, N);
   window_backpointers_kernel<<<grid, 256, 0, st>>>(t1m1, logB, lengths, bp, W, S, Sp);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t smem = 8 * 2 * ((stages + 1) / 2) + stages * chunk_bytes;
-  e = cudaFuncSetAttribute(window_chase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  window_chase_kernel<<<N, 32, smem, st>>>(bp, start_states, lengths, states, W, Sp, stages);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(vspl_launch_chase(static_cast<const int*>(bp), start_states, lengths,
+                                            states, N, W, Sp, st));
 }

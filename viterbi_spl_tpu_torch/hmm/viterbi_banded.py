@@ -1,8 +1,10 @@
 """Exact banded fast path for the batched Viterbi decode (counterpart of
 viterbi_spl_tpu/hmm/viterbi_banded.py): the host-side structure extraction
-in NumPy, and kernels K1 (forward), K2 (backtrace) and K9 (the forward with
-the observation model computed inside it, from raw logits) — CUDA C++ in
-csrc/viterbi_banded.cu, each with its plain PyTorch version here.
+in NumPy, and kernels K1 (forward), K2 (backtrace: a backpointer pass, then
+a chase) and K9 (the forward with the observation model computed inside it,
+from raw logits) — CUDA C++ in csrc/viterbi_banded.cu, each with its plain
+PyTorch version here (banded_backpointers_plain is the plain version of
+K2's pass).
 
 Every shaped melody transition matrix (SURVEY.md §2.4) has the structure
 
@@ -258,32 +260,58 @@ def banded_forward_plain(bs: BandedStructure, log_pi, log_obs, lengths):
     return prev, t1m1
 
 
+def rebuilt_rows(bs: BandedStructure, device) -> torch.Tensor:
+    """[S targets, S sources] f32: row s is logB[s, :] rebuilt from the
+    structure (profile values in band, LOG_TINY out of band, log c_uv at the
+    unvoiced source; the uv row for the unvoiced target), the values the
+    kernels use."""
+    S, n, d_max = bs.S, bs.n_bins, bs.d_max
+    bv, cls = _profiles(bs, device)
+    x = torch.arange(S, device=device)[None, :]
+    s = torch.arange(S, device=device)[:, None]
+    e = x - s  # offset of source x from target s
+    in_band = (e.abs() <= d_max) & (x < n)
+    c = cls[(e + d_max).clamp(0, 2 * d_max)]
+    row = torch.where(in_band, bv[c, x], LOG_TINY)
+    row = torch.where(x == n, bs.log_c_uv, row)
+    uv_row = torch.where(x < n, bs.log_c_vu, bs.log_c_uu).to(torch.float32)
+    return torch.where(s == n, uv_row, row)
+
+
 def banded_backtrace_plain(bs: BandedStructure, t1m1, last_states, lengths):
     """K2's plain version: t1m1 [N, T, S], last_states [N], lengths [N] ->
     states [N, T] int32 (zeros at or beyond each track's length)."""
     N, T, S = t1m1.shape
-    n, d_max = bs.n_bins, bs.d_max
     dev = t1m1.device
-    bv, cls = _profiles(bs, dev)
+    rows = rebuilt_rows(bs, dev)
     lengths = torch.as_tensor(lengths, device=dev)
     last = torch.as_tensor(last_states, device=dev).to(torch.int64)
-    x = torch.arange(S, device=dev)
-    uv_row = torch.where(x < n, bs.log_c_vu, bs.log_c_uu).to(torch.float32)
     states = torch.zeros((N, T), dtype=torch.int32, device=dev)
     s = last.clone()
     for t in range(T - 1, -1, -1):
         s = torch.where(t == lengths - 1, last, s)
         active = t < lengths
         states[:, t] = torch.where(active, s, 0).to(torch.int32)
-        e = x[None, :] - s[:, None]  # [N, S] offset of source x from target s
-        in_band = (e.abs() <= d_max) & (x[None, :] < n)
-        c = cls[(e + d_max).clamp(0, 2 * d_max)]
-        row = torch.where(in_band, bv[c, x[None, :]], LOG_TINY)
-        row = torch.where(x[None, :] == n, bs.log_c_uv, row)
-        row = torch.where((s == n)[:, None], uv_row[None, :], row)
-        bp = first_argmax(t1m1[:, t] + row, dim=1)
+        bp = first_argmax(t1m1[:, t] + rows[s], dim=1)
         s = torch.where(active, bp, s)
     return states
+
+
+def banded_backpointers_plain(bs: BandedStructure, t1m1, lengths):
+    """The plain version of K2's backpointer pass: bp[n, t, s] =
+    first-argmax_x(t1m1[n, t, x] + logB[s, x]) over the rebuilt rows for
+    1 <= t < lengths[n], zeros elsewhere; [N, T, S] int32. Chasing s_{t-1} =
+    bp[n, t, s_t] from each track's last state gives banded_backtrace_plain's
+    states."""
+    N, T, S = t1m1.shape
+    dev = t1m1.device
+    rows = rebuilt_rows(bs, dev)
+    lengths = torch.as_tensor(lengths, device=dev)
+    bp = torch.zeros((N, T, S), dtype=torch.int32, device=dev)
+    for t in range(1, T):
+        cand = t1m1[:, t, None, :] + rows[None]  # [N, S targets, S sources]
+        bp[:, t] = torch.where((t < lengths)[:, None], first_argmax(cand, dim=2), 0).to(torch.int32)
+    return bp
 
 
 # ----------------------------------------------------------------------
@@ -297,11 +325,79 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vspl_banded_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P],
-    "vspl_banded_backtrace": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "vspl_banded_backtrace": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _F, _F, _F, _P],
-    "vspl_banded_forward_obs": [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P,
-                                _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "vspl_banded_forward_obs": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P,
+                                _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
 }
+
+
+def bp_row_entries(S: int) -> int:
+    """Entries of one row of K2's int16 backpointer scratch: S rounded up to
+    a multiple of 8, so that each row is a multiple of 16 bytes (the chase's
+    bulk copies)."""
+    return -(-S // 8) * 8
+
+
+# K2's routes' costs a frame on an H100 (scripts/gpu_banded_probe.py, parts
+# routes and voicing; PERF.md). The pass and the chase: K2_PASS_US plus
+# K2_PASS_PS per track, target and in-band offset. The chain, whatever the
+# number of tracks up to one wave: K2_CHAIN_US[S] at an unvoiced state, and
+# K2_CHAIN_VOICED_US[S] more at a voiced one (its in-band scan; concave in
+# the voiced share at 361 states, linear at 722), taken linearly in S
+# between and beyond the two state counts measured. Both
+# routes' fixed costs are ~0.08 ms, so T does not move the choice; it
+# enters through the pass's scratch, which is capped.
+K2_PASS_US = 0.055
+K2_PASS_PS = 0.366
+K2_CHAIN_US = {361: 0.50, 722: 0.66}
+K2_CHAIN_VOICED_US = {361: 0.125, 722: 0.28}
+K2_PASS_MAX_SCRATCH = 4 << 30
+
+
+def _at_states(table: dict, S: int) -> float:
+    (s0, v0), (s1, v1) = sorted(table.items())
+    return v0 + (S - s0) * (v1 - v0) / (s1 - s0)
+
+
+def k2_takes_pass(N: int, T: int, S: int, d_max: int, voiced: float) -> bool:
+    """Whether K2 takes the backpointer pass and the chase rather than one
+    chain per track, for N tracks of T frames whose paths are at a voiced
+    state for a share `voiced` of their frames: while the pass's estimated
+    time a frame is below the chain's, and the int16 scratch, N * T *
+    bp_row_entries(S) * 2 bytes, stays within K2_PASS_MAX_SCRATCH (4 GiB).
+    Both routes give the same states."""
+    if 2 * N * T * bp_row_entries(S) > K2_PASS_MAX_SCRATCH:
+        return False
+    pass_us = K2_PASS_US + 1e-6 * K2_PASS_PS * N * S * (2 * d_max + 1)
+    chain_us = _at_states(K2_CHAIN_US, S) + voiced * _at_states(K2_CHAIN_VOICED_US, S)
+    return pass_us < chain_us
+
+
+def k2_route(bs: BandedStructure, N: int, T: int, last_states) -> str:
+    """K2's route for a batch: "pass" or "chain" by k2_takes_pass. Where
+    the answer depends on the paths' voiced share, it is estimated by the
+    last states' (read from the card: one wait for the forward before K2
+    launches)."""
+    lo, hi = (k2_takes_pass(N, T, bs.S, bs.d_max, v) for v in (0.0, 1.0))
+    if lo == hi:
+        return "pass" if lo else "chain"
+    voiced = float(torch.as_tensor(last_states).ne(bs.n_bins).float().mean())
+    return "pass" if k2_takes_pass(N, T, bs.S, bs.d_max, voiced) else "chain"
+
+
+def k9_layout(S: int, model: int) -> tuple[int, int]:
+    """K9's (producer warps, ring frames) at S states, by a fixed rule. One
+    producer warp makes one observation frame in ~7,200 SM cycles at 361
+    states (spw 5) and ~17,900 at 722 (spw 16), shaun and softmax alike,
+    while the DP takes a frame in ~1,150 and ~8,300 (the DP needs one frame
+    per frame); 12 producers at up to 384 states and 6 above measured
+    fastest or within noise of it (scripts/gpu_banded_probe.py, PERF.md).
+    The ring holds at least as many frames as there are producers (the
+    kernel's parity waits need it). `model` does not change the rule."""
+    dp_warps = -(-S // 32)
+    producers = max(1, min(12 if S <= 384 else 6, 32 - dp_warps))
+    return producers, max(producers, 32 if S <= 384 else 16)
 
 
 def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths):
@@ -332,12 +428,19 @@ def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths):
     return t1_last, t1m1
 
 
-def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengths):
+def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengths,
+                     route: str | None = None):
     """K2: banded batched reverse chase. Returns states [N, T] int32;
-    entries at or beyond each track's length are unspecified."""
+    entries at or beyond each track's length are unspecified. On the card,
+    by route "pass", a parallel pass writes every backpointer into an int16
+    scratch [N, T, bp_row_entries(S)], then one thread per track chases
+    them (two kernels, one counted launch); by route "chain", one warp per
+    track takes each step's argmax. None takes k2_route's choice."""
     N, T, S = t1m1.shape
     if S != bs.S:
         raise ValueError(f"t1m1 has {S} states, the structure {bs.S}")
+    if route not in (None, "pass", "chain"):
+        raise ValueError(f"K2 has the routes 'pass' and 'chain', not {route!r}")
     lens = cuda_lib.host_lengths(lengths, N, T)
     if t1m1.device.type == "cpu":
         return banded_backtrace_plain(bs, t1m1, last_states, lens)
@@ -346,11 +449,14 @@ def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengt
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
     states = torch.empty((N, T), dtype=torch.int32, device=dev)
+    bp = None
+    if (route or k2_route(bs, N, T, last)) == "pass":
+        bp = torch.empty((N, T, bp_row_entries(S)), dtype=torch.int16, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)
     P = cuda_lib.ptr
     rc = lib.vspl_banded_backtrace(
-        P(t1m1), P(bv), P(cls), P(last), P(lens_d), P(states), N, T, S,
-        bs.d_max, bv.shape[0], LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu,
+        P(t1m1), P(bv), P(cls), P(last), P(lens_d), P(states), None if bp is None else P(bp),
+        N, T, S, bs.d_max, bv.shape[0], LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu,
         cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "banded backtrace (K2)")
@@ -390,8 +496,10 @@ def banded_forward_obs(bs: BandedStructure, log_pi, logits: torch.Tensor, length
     t1_last = torch.empty((N, bs.S), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)
     P = cuda_lib.ptr
+    producers, ring = k9_layout(bs.S, model)
     rc = lib.vspl_banded_forward_obs(
-        P(logits), P(idx), P(prior), model, spw, *map(float, params), P(bv), P(cls),
+        P(logits), P(idx), P(prior), model, spw, *map(float, params), producers, ring,
+        P(bv), P(cls),
         P(log_pi), P(lens_d), P(t1m1), P(t1_last), N, T, bs.S, bs.d_max, bv.shape[0],
         LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu, cuda_lib.stream_ptr(dev),
     )
