@@ -6,12 +6,13 @@ their entry points, and times the kernels at full width.
     python3 chip_smoke.py [--baseline DIR]
 
 --baseline DIR: a tree of an earlier commit of this repo (for example
-`git archive 7769e5b | tar -x -C runs/base`); its viterbi_spl_tpu_torch
-package is imported as `vspl_baseline` and its csrc/viterbi_banded.cu built
-into its own build directory (while this tree's kernels build), and phases
-4, 4b and 4d time its K1, K2 and K9 wrappers in turns with this tree's
-(old, new, new, old) as *_base_ms keys, each checked bit-equal to this
-tree's output on the same inputs. Without it those keys are null.
+`git archive 9cb2ea1 | tar -x -C runs/base`); its viterbi_spl_tpu_torch
+package is imported as `vspl_baseline` and its csrc/viterbi_banded.cu,
+viterbi_dense.cu and viterbi_window.cu built into its own build directory
+(while this tree's kernels build), and phases 4, 4b and 4d time its K1, K2,
+K3 and K9 wrappers, and phase 4c its K7, in turns with this tree's (old,
+new, new, old) as *_base_ms keys, each checked bit-equal to this tree's
+output on the same inputs. Without it those keys are null.
 
 Phases (one JSON line each):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, build time.
@@ -19,7 +20,8 @@ Phases (one JSON line each):
      ragged lengths): K1/K2 at 361 states (tonet, d_max 14) and 722 (jdc,
      d_max 40), K3/K4 at 722 (imm's analytic matrix) and 361 (a random
      dense matrix); exact equality (tolerance 0), and track 0 against the
-     oracle; K2 by both its routes (the backpointer pass and the chase, and
+     oracle; K1 by its rule's layout and by one block a track, K3 by both
+     its routes (K7's kernel, the cluster kernel); K2 by both its routes (the backpointer pass and the chase, and
      a chain per track), also on the tie fixture (hmm/fixtures.py:
      equal maxima at every step of every chase), equal to its plain version
      and to the fixture's path. K5/K6 at 361 bins (spw 5) and 722 (spw 16 and 20) under the
@@ -47,7 +49,8 @@ Phases (one JSON line each):
      hold against their plain versions on those inputs.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense);
-     with --baseline, the earlier K1/K2 in turns at the banded shapes.
+     with --baseline, the earlier K1/K2 in turns at the banded shapes and
+     the earlier K3 at the dense ones.
   4b. bench.py's two serving chains: 361 states, N=128, T=8192, spw 5;
      722 states, N=64, T=4096, spw 16, d_max 40, track 0 at length 1024.
      ms and frames/s of K5 alone, K6 (scaled) alone, K5 -> K1 -> argmax ->
@@ -64,7 +67,7 @@ Phases (one JSON line each):
      K9 on the fused decode API's batch, K7/K8 over the time-sharded
      decode's windows at each halo it tried and the seam-stress fixture's;
      the sum of those times and of their bounds; with --baseline, the
-     earlier K1, K2 and K9 in turns at the same launches, and their sums.
+     earlier K1, K2, K3 and K9 in turns at the same launches, and their sums.
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
      bounds it (and the phase 4d sums).
@@ -127,7 +130,7 @@ KERNEL_INFO = {
            "viterbi_spl_tpu/hmm/viterbi_banded.py:467"),
     "K2": ("banded_backtrace", "viterbi_spl_tpu_torch/csrc/viterbi_banded.cu",
            "viterbi_spl_tpu/hmm/viterbi_banded.py:773"),
-    "K3": ("dense_forward", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
+    "K3": ("dense_forward", "viterbi_spl_tpu_torch/csrc/viterbi_window.cu",
            "viterbi_spl_tpu/hmm/viterbi_pallas.py:507"),
     "K4": ("dense_backtrace", "viterbi_spl_tpu_torch/csrc/viterbi_dense.cu",
            "viterbi_spl_tpu/hmm/viterbi_pallas.py:558"),
@@ -220,7 +223,7 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
     if kind == "banded":
         bs = VB.extract_banded_structure(A)
         check(bs is not None, "shaped matrix has the banded structure")
-        fwd = lambda o, L: VB.banded_forward(bs, log_pi, o, L)  # noqa: E731
+        fwd = lambda o, L, route=None: VB.banded_forward(bs, log_pi, o, L, cluster=route)  # noqa: E731
         bt = lambda t1m1, last, L, route=None: VB.banded_backtrace(bs, t1m1, last, L, route)  # noqa: E731
         fwd_p = lambda o, L: VB.banded_forward_plain(bs, torch.from_numpy(log_pi).to(o.device), o, L)  # noqa: E731
         bt_p = lambda t1m1, last, L: VB.banded_backtrace_plain(bs, t1m1, last, L)  # noqa: E731
@@ -228,7 +231,7 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
         check(VB.extract_banded_structure(A) is None, "dense matrix has no banded structure")
         dev = log_obs.device
         lB, lpi = torch.from_numpy(log_B).to(dev), torch.from_numpy(log_pi).to(dev)
-        fwd = lambda o, L: VD.dense_forward(log_B, log_pi, o, L)  # noqa: E731
+        fwd = lambda o, L, route=None: VD.dense_forward(log_B, log_pi, o, L, route=route)  # noqa: E731
         bt = lambda t1m1, last, L, route=None: VD.dense_backtrace(log_B, t1m1, last, L)  # noqa: E731
         fwd_p = lambda o, L: VD.dense_forward_plain(lB, lpi, o, L)  # noqa: E731
         bt_p = lambda t1m1, last, L: VD.dense_backtrace_plain(lB, t1m1, last, L)  # noqa: E731
@@ -241,24 +244,33 @@ def k2_routes(kind):
     return ("pass", "chain") if kind == "banded" else (None,)
 
 
+def forward_routes(kind):
+    """The forward's layouts or routes to hold against its plain version:
+    K1 by its rule (k1_cluster) and by one block a track (cluster 0); K3 by
+    K7's kernel (its rule's tracks a cluster) and by its cluster kernel."""
+    return (None, 0) if kind == "banded" else ("window", "cluster")
+
+
 def compare_kernels(kind, A, pi, log_obs, lengths):
     """One matrix's forward and backtrace kernels against their plain
-    versions on the same inputs, the backtrace by each of its routes:
+    versions on the same inputs, each by every layout or route it has:
     (forward error, backtrace error, track 0 equals the oracle by every
     route). The errors are the largest absolute differences of t1_last, of
     t1m1 up to each track's length and of the states."""
     (fwd, bt, fwd_p, bt_p), log_B, log_pi = kernel_pair(kind, A, pi, log_obs, lengths)
-    t1_k, t1m1_k = fwd(log_obs, lengths)
+    fwds = [fwd(log_obs, lengths, route) for route in forward_routes(kind)]
+    t1m1_k = fwds[0][1]
     t1_p, t1m1_p = fwd_p(log_obs, lengths)
     last = torch.argmax(t1_p, dim=1).to(torch.int32)
     st_ks = [bt(t1m1_k, last, lengths, route) for route in k2_routes(kind)]
     st_p = bt_p(t1m1_p, last, lengths)
     torch.cuda.synchronize()
-    f_err = float((t1_k - t1_p).abs().max())
+    f_err = max(float((t1_k - t1_p).abs().max()) for t1_k, _ in fwds)
     b_err = 0.0
     for n, L in enumerate(lengths):
         L = int(L)
-        f_err = max(f_err, float((t1m1_k[n, :L] - t1m1_p[n, :L]).abs().max()))
+        for _, rows_k in fwds:
+            f_err = max(f_err, float((rows_k[n, :L] - t1m1_p[n, :L]).abs().max()))
         for st_k in st_ks:
             b_err = max(b_err, float((st_k[n, :L] - st_p[n, :L]).abs().max()))
     L0 = int(lengths[0])
@@ -272,7 +284,8 @@ def record_errors(errs, kind, label, N, T, f_err, b_err, oracle_ok) -> None:
     errs[kf] = max(errs[kf], f_err)
     errs[kb] = max(errs[kb], b_err)
     emit({"phase": "equality", "kind": kind, "shape": label, "N": N, "T": T,
-          "backtrace_routes": k2_routes(kind), "forward_max_abs_err": f_err,
+          "forward_routes": forward_routes(kind), "backtrace_routes": k2_routes(kind),
+          "forward_max_abs_err": f_err,
           "backtrace_max_abs_err": b_err, "track0_matches_oracle": oracle_ok})
     check(f_err == 0.0 and b_err == 0.0, f"{kind} {label}: kernels equal their plain versions")
     check(oracle_ok, f"{kind} {label}: track 0 equals the oracle")
@@ -914,21 +927,20 @@ def phase_timing(dev, shapes, base=None) -> dict:
         kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
         iters = 5 if T * N > 1 << 20 else 10
         bs = VB.extract_banded_structure(A) if kind == "banded" else None
-        old = base if kind == "banded" else None
+        old_f = base and base.forward(kind, bs, log_B, log_pi, log_obs, lengths)
         out = {}
-        ms_f, ms_f_old = in_turns(
-            lambda: out.update(f=fwd(log_obs, lengths)),
-            old and (lambda: old.k1(bs, log_pi, log_obs, lengths)), iters)
+        ms_f, ms_f_old = in_turns(lambda: out.update(f=fwd(log_obs, lengths)), old_f, iters)
         t1_last, t1m1 = out.pop("f")
         last = torch.argmax(t1_last, dim=1).to(torch.int32)
-        ms_b, ms_b_old = in_turns(
-            lambda: out.update(b=bt(t1m1, last, lengths)),
-            old and (lambda: old.k2(bs, t1m1, last, lengths)), iters)
+        old_b = base and base.backtrace(kind, bs, t1m1, last, lengths)
+        ms_b, ms_b_old = in_turns(lambda: out.update(b=bt(t1m1, last, lengths)), old_b, iters)
         states = out.pop("b")
-        if old:
-            check(same_forward(old.k1(bs, log_pi, log_obs, lengths), (t1_last, t1m1), lengths)
-                  and same_states(old.k2(bs, t1m1, last, lengths), states, lengths),
-                  f"{label}: the baseline's K1/K2 give the same t1_last, t1m1 and states")
+        if old_f:
+            check(same_forward(old_f(), (t1_last, t1m1), lengths),
+                  f"{label}: the baseline's {kf} gives the same t1_last and t1m1")
+        if old_b:
+            check(same_states(old_b(), states, lengths),
+                  f"{label}: the baseline's {kb} gives the same states")
 
         def decode():
             t1, rows = fwd(log_obs, lengths)
@@ -961,6 +973,10 @@ def phase_timing(dev, shapes, base=None) -> dict:
                f"{kf}_bound_ms": bf[0], f"{kf}_bound_by": bf[1],
                f"{kb}_bound_ms": bb[0], f"{kb}_bound_by": bb[1],
                "K2_route": bs and VB.k2_route(bs, N, T, last),
+               "K1_cluster": bs and VB.k1_cluster(N, S, bs.d_max),
+               "K3_route": None if bs else VD.k3_route(S),
+               "K3_tracks_per_cluster": None if bs else VD.k3_tracks_per_cluster(
+                   N, VD.window_max_clusters(S)),
                "voiced_share": voiced_share(states, S, lengths),
                "plain_T": T_PLAIN, "oracle_seconds": oracle_s, "track0_matches_oracle": oracle_ok}
         emit(rec)
@@ -1111,10 +1127,11 @@ def phase_serving(dev, base=None) -> dict:
 
 class Baseline:
     """An earlier tree's viterbi_spl_tpu_torch, imported as the package
-    `vspl_baseline`: its own wrappers of K1, K2 and K9 (banded_forward,
-    banded_backtrace, banded_forward_obs), with its kernels built from its
-    own csrc/ into its own build directory. They take and return what this
-    tree's wrappers do."""
+    `vspl_baseline`: its own wrappers of K1, K2, K9 (banded_forward,
+    banded_backtrace, banded_forward_obs), K3 and K7 (dense_forward,
+    window_forward), with its
+    kernels built from its own csrc/ into its own build directory. They take
+    and return what this tree's wrappers do."""
 
     def __init__(self, tree: Path):
         """Imports the package and starts its build; load() waits for it."""
@@ -1127,21 +1144,37 @@ class Baseline:
         self.cuda_lib = importlib.import_module("vspl_baseline.cuda_lib")
         vb = importlib.import_module("vspl_baseline.hmm.viterbi_banded")
         self.k1, self.k2, self.k9 = vb.banded_forward, vb.banded_backtrace, vb.banded_forward_obs
+        vd = importlib.import_module("vspl_baseline.hmm.viterbi_dense")
+        self.k3, self.k7 = vd.dense_forward, vd.window_forward
         self.error = None
         self.thread = threading.Thread(target=self._build)
         self.thread.start()
 
     def _build(self) -> None:
         try:
-            self.cuda_lib.build(["viterbi_banded"])
+            self.cuda_lib.build(["viterbi_banded", "viterbi_dense", "viterbi_window"])
         except Exception as e:  # re-raised by load()
             self.error = e
 
     def load(self) -> "Baseline":
         self.thread.join()
         if self.error is not None:
-            raise RuntimeError("the baseline's viterbi_banded.cu does not build") from self.error
+            raise RuntimeError("the baseline's kernels do not build") from self.error
         return self
+
+    def forward(self, kind, bs, log_B, log_pi, log_obs, lengths):
+        """A closure of the baseline's forward on these inputs: K1 (banded)
+        or K3 (dense)."""
+        if kind == "banded":
+            return lambda: self.k1(bs, log_pi, log_obs, lengths)
+        return lambda: self.k3(log_B, log_pi, log_obs, lengths)
+
+    def backtrace(self, kind, bs, t1m1, last, lengths):
+        """A closure of the baseline's K2 on these inputs (banded), or None:
+        K4 is unchanged."""
+        if kind == "banded":
+            return lambda: self.k2(bs, t1m1, last, lengths)
+        return None
 
 
 def voiced_share(states, S, lengths) -> float:
@@ -1170,14 +1203,15 @@ def in_turns(new, old, iters):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
-def phase_seq_timing(dev, seq) -> dict:
+def phase_seq_timing(dev, seq, base=None) -> dict:
     """K7 and K8 alone and the single-track decode K7 -> argmax -> K8 on the
     32768-frame tonet track of phase 3c and on an imm 722 track of 4096
     frames (uniform log observations); on the tonet track also the
     time-sharded decode: K7 and K8 over its 8 windows at the final halo
     (one launch each), one halo attempt (windows, K7, argmax, K8 and the
     certificate) at each halo the certified decode tried, and the
-    certified decode from halo 64."""
+    certified decode from halo 64. With a baseline, its K7 in turns with
+    this tree's on each track and on the windows, and equal to it."""
     T_PLAIN = 32
     imm_A = hmm_params.imm_transition_matrix(20, 721)
     cases = [("tonet 361 track", seq["A"], seq["pi"], seq["log_obs"]),
@@ -1190,7 +1224,12 @@ def phase_seq_timing(dev, seq) -> dict:
         zero = np.zeros(1, np.int32)
         t1_last, t1m1 = VD.viterbi_forward(log_B, log_pi, log_obs, T)
         last = torch.argmax(t1_last)
-        ms_f = cuda_ms(lambda: VD.viterbi_forward(log_B, log_pi, log_obs, T), 5)
+        old_k7 = base and (lambda: base.k7(log_B, log_pi, log_obs[None], [T], [0]))
+        ms_f, ms_f_old = in_turns(lambda: VD.viterbi_forward(log_B, log_pi, log_obs, T),
+                                  old_k7, 5)
+        if old_k7:
+            check(same_forward(old_k7(), (t1_last[None], t1m1[None]), [T]),
+                  f"{label}: the baseline's K7 gives the same t1_last and t1m1")
         ms_b = cuda_ms(lambda: VD.viterbi_backtrace(t1m1, log_B, last, T), 5)
         del t1m1
 
@@ -1211,6 +1250,7 @@ def phase_seq_timing(dev, seq) -> dict:
         rec = {"phase": "timing", "shape": label, "N": 1, "T": T, "S": S,
                "decode_ms": ms_dec, "frames_per_s": T / (ms_dec / 1e3),
                "K7_ms": ms_f, "K8_ms": ms_b, "K7_plain_ms": ms_fp, "K8_plain_ms": ms_bp,
+               "K7_base_ms": ms_f_old,
                "K7_us_per_frame": 1e3 * ms_f / T, "K8_us_per_step": 1e3 * ms_b / (T - 1),
                "K7_cluster_blocks": VD.window_cluster_size(S),
                "K7_bound_ms": bf[0], "K7_bound_by": bf[1],
@@ -1220,7 +1260,12 @@ def phase_seq_timing(dev, seq) -> dict:
             windows, lengths, resets = block_windows(log_obs, H)
             t1_w, m_w = VD.window_forward(log_B, log_pi, windows, lengths, resets)
             st = torch.argmax(t1_w, dim=1)
-            ms_wf = cuda_ms(lambda: VD.window_forward(log_B, log_pi, windows, lengths, resets), 5)
+            old_w = base and (lambda: base.k7(log_B, log_pi, windows, lengths, resets))
+            ms_wf, ms_wf_old = in_turns(
+                lambda: VD.window_forward(log_B, log_pi, windows, lengths, resets), old_w, 5)
+            if old_w:
+                check(same_forward(old_w(), (t1_w, m_w), lengths),
+                      f"{label}: the baseline's K7 gives the same windows")
             ms_wb = cuda_ms(lambda: VD.window_backtrace(log_B, m_w, st, lengths), 5)
             del m_w, windows
             ms_attempt = {h: cuda_ms(lambda: viterbi_sharded_time_blocks(
@@ -1231,6 +1276,7 @@ def phase_seq_timing(dev, seq) -> dict:
             wf, wb = bounds("K7", S, lengths), bounds("K8", S, lengths)
             rec.update({"halo": H, "blocks": SEQ_BLOCKS,
                         "K7_windows_ms": ms_wf, "K8_windows_ms": ms_wb,
+                        "K7_windows_base_ms": ms_wf_old,
                         "K7_windows_bound_ms": wf[0], "K8_windows_bound_ms": wb[0],
                         "time_sharded_ms_per_halo_attempt": {int(h): ms for h, ms in ms_attempt.items()},
                         "time_sharded_decode_ms": ms_auto,
@@ -1264,19 +1310,20 @@ def phase_path_shapes(dev, ctx, seq, base=None) -> dict:
         bs = VB.extract_banded_structure(st.transition_matrix) if kind == "banded" else None
         kf, kb = ("K1", "K2") if kind == "banded" else ("K3", "K4")
         S, label = log_obs.shape[2], f"{kind} main path N={len(lengths)} T={log_obs.shape[1]}"
-        old = base if kind == "banded" else None
-        _, log_pi = prepare_log_params(st.transition_matrix, st.init_probs)
+        log_B, log_pi = prepare_log_params(st.transition_matrix, st.init_probs)
+        old_f = base and base.forward(kind, bs, log_B, log_pi, log_obs, lengths)
         out = {}
-        ms_f, ms_f_old = in_turns(lambda: out.update(f=fwd(log_obs, lengths)),
-                                  old and (lambda: old.k1(bs, log_pi, log_obs, lengths)), 5)
+        ms_f, ms_f_old = in_turns(lambda: out.update(f=fwd(log_obs, lengths)), old_f, 5)
         t1, rows = out.pop("f")
         last = argmax(t1)
-        ms_b, ms_b_old = in_turns(lambda: out.update(b=bt(rows, last, lengths)),
-                                  old and (lambda: old.k2(bs, rows, last, lengths)), 5)
-        if old:
-            check(same_forward(old.k1(bs, log_pi, log_obs, lengths), (t1, rows), lengths)
-                  and same_states(old.k2(bs, rows, last, lengths), out.pop("b"), lengths),
-                  f"{label}: the baseline's K1/K2 give the same results")
+        old_b = base and base.backtrace(kind, bs, rows, last, lengths)
+        ms_b, ms_b_old = in_turns(lambda: out.update(b=bt(rows, last, lengths)), old_b, 5)
+        if old_f:
+            check(same_forward(old_f(), (t1, rows), lengths),
+                  f"{label}: the baseline's {kf} gives the same results")
+        if old_b:
+            check(same_states(old_b(), out.pop("b"), lengths),
+                  f"{label}: the baseline's {kb} gives the same results")
         for _ in range(n):
             add(kf, label, ms_f, bounds(kf, S, lengths, bs), ms_f_old)
             add(kb, label, ms_b, bounds(kb, S, lengths, bs), ms_b_old)
@@ -1342,7 +1389,7 @@ def phase_path_shapes(dev, ctx, seq, base=None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="tree of an earlier commit whose K1, K2 and K9 phases 4, 4b and 4d "
+                    help="tree of an earlier commit whose K1, K2, K3, K7 and K9 phases 4-4d "
                          "time beside these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1383,7 +1430,7 @@ def main(argv=None) -> int:
     phase_streaming(dev)
     timing = phase_timing(dev, full_width_shapes(), base)
     timing.update(phase_serving(dev, base))
-    timing.update(phase_seq_timing(dev, seq))
+    timing.update(phase_seq_timing(dev, seq, base))
     path = phase_path_shapes(dev, ctx, seq, base)
     check(all(path[k]["launches_timed"] == launches[k] for k in KERNEL_INFO),
           f"phase 4d timed one launch per counted launch: {launches}")

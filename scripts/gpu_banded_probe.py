@@ -1,4 +1,4 @@
-"""Measurements behind the banded kernels' design (K9 and K2 of
+"""Measurements behind the banded kernels' design (K1, K9 and K2 of
 viterbi_spl_tpu_torch/csrc/viterbi_banded.cu) on the GPU:
 
 1. clocked observation frames: one block of w warps (w = 1, 4, 8), each
@@ -33,7 +33,28 @@ viterbi_spl_tpu_torch/csrc/viterbi_banded.cu) on the GPU:
    voiced share of the states and of the last states, and both routes'
    times in turns.
 
-    python3 scripts/gpu_banded_probe.py [--parts obs,k9,k2,routes,voicing]
+0. K1's frame, clocked (the k1_clocked variant: clock64 between the parts
+   of a frame in every warp of track 0's block, and each warp's %warpid,
+   whose value mod 4 is its SM sub-partition; the shipped frame and the
+   earlier one with float warp maxima, k1_clocked_floats) at tonet 361
+   (d_max 14, N=128)
+   and jdc 722 (d_max 40, N=64), T=4096; and K1's ms against the number of
+   tracks (one block per track) at both. --sass FILE writes the built
+   library's SASS, whose frame loop gives the instructions each warp runs.
+
+   k1layouts: K1 by one block per track and by clusters of 1, 2, 4 and 8
+   blocks per track (banded_forward's `cluster`), and a candidate with four
+   targets a thread (banded_quad_kernel, appended below), in turns, over
+   tracks at 361 states (d_max 14 and 20) and 722, every layout bit-equal
+   to one block per track; with the card's capacity in clusters and
+   k1_cluster's choice.
+   k1variants: the one-block frame's variants (K1_VARIANTS) in turns with
+   the shipped frame at 361 states, 8 and 128 tracks.
+   k1cluster: the cluster kernel's variants (K1_CLUSTER_VARIANTS) in turns
+   with the shipped one at 722 states, 8 and 64 tracks.
+
+    python3 scripts/gpu_banded_probe.py [--parts k1,k1layouts,k1variants,k1cluster,
+                                                 obs,k9,k2,routes,voicing] [--sass FILE]
 
 Prints one JSON line per reading, and the card's name and power limit. Each
 variant's source is csrc/viterbi_banded.cu, patched, with entries for the
@@ -70,6 +91,357 @@ VARIANTS = {
                  "  static constexpr int kThreads = kBand > VSPL_BAND_REGS ? 256 : 192;")],
     "loads_only": [("  if (tid >= tile || s >= S) return;\n", "  return;\n")],
 }
+# Variants of the one-block K1 frame (banded_forward_kernel), each timed in
+# turns with the shipped kernel and bit-equal to it:
+#   store_cur  t1m1's row t from the thread's register (shipped: a shared
+#              load of the previous row)
+#   float_wmax 9cb2ea1's frame: the warps' maxima converted to floats after each
+#              warp reduction and back to keys before the next (shipped: kept
+#              as order keys)
+#   reg_obs    observations loaded 4 frames ahead into registers (shipped: a
+#              16-frame cp.async ring in shared memory)
+#   chains2, chains8  the in-band candidates in 2 or 8 max chains (shipped: 4)
+#   cheap_key  a two-operation order key for the voiced maximum
+#   atomic     cheap_key's keys max-accumulated by each warp into one shared
+#              slot a row (atomicMax), so a frame starts with one broadcast
+#              load and no warp reduction
+K1_STORE_CUR = [("      out[static_cast<size_t>(t) * S + tid] = prev[tid];\n",
+                 "      out[static_cast<size_t>(t) * S + tid] = cur;\n")]
+K1_KEY_WMAX = [
+    ("  float wv = vspl_warp_max(tid < n ? cur : -CUDART_INF_F);\n"
+     "  if (lane == 0) wmax[warp] = wv;\n",
+     "  // each warp's voiced maximum, kept as its order key from one warp\n"
+     "  // reduction to the next (no conversion between them on the frame's chain)\n"
+     "  unsigned wv =\n"
+     "      __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(tid < n ? cur : -CUDART_INF_F));\n"
+     "  if (lane == 0) wmax[warp] = __uint_as_float(wv);\n"),
+    ("    const float max_voiced =\n"
+     "        vspl_warp_max(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)]);\n",
+     "    const float max_voiced = vspl_key_value(__reduce_max_sync(\n"
+     "        VSPL_FULL_MASK,\n"
+     "        __float_as_uint(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)])));\n"),
+    ("    wv = vspl_warp_max(tid < n ? nv : -CUDART_INF_F);\n"
+     "    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = wv;\n",
+     "    wv = __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(tid < n ? nv : -CUDART_INF_F));\n"
+     "    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = __uint_as_float(wv);\n"),
+]
+
+
+def on_keys(text):
+    """`text` of 9cb2ea1's K1 frame as it reads with the warps' maxima kept as
+    keys (the shipped frame): the anchors of the variants below."""
+    for old, new in K1_KEY_WMAX:
+        text = text.replace(old, new)
+    return text
+
+
+K1_REG_OBS = [
+    ("  if constexpr (kObs == 0)\n"
+     "    for (int r = 1; r <= VSPL_RING; ++r)\n"
+     "      vspl_stage_one(obs_ring + (r % VSPL_RING) * S + tid,\n"
+     "                     obs + static_cast<size_t>(min(r, len - 1)) * S + tid, real && r < len);\n",
+     "  const float* obs_me = obs + min(tid, S - 1);\n"
+     "  auto obs_at = [&](int f) {\n"
+     "    return real ? __ldg(obs_me + static_cast<size_t>(min(f, len - 1)) * S) : 0.0f;\n"
+     "  };\n"
+     "  float o1 = obs_at(1), o2 = obs_at(2), o3 = obs_at(3), o4 = obs_at(4);\n"),
+    ("      vspl_wait_oldest_row();  // this thread's observation of frame t\n"
+     "      obs_t = real ? obs_ring[slot] : 0.0f;\n",
+     "      obs_t = o1;\n      o1 = o2;\n      o2 = o3;\n      o3 = o4;\n      o4 = obs_at(t + 4);\n"),
+    ("      vspl_stage_one(obs_ring + slot, obs + static_cast<size_t>(min(r, len - 1)) * S + tid,\n"
+     "                     real && r < len);\n",
+     "      (void)r;\n"),
+]
+# cheap_key: key_wmax with a two-operation key (sign-of-zero blind, which a
+# maximum only added to nonzero constants never shows)
+K1_MAX_KEY = ("// ---------------------------------------------------------------------------\n"
+              "// K1 and K9\n",
+              "// ---------------------------------------------------------------------------\n"
+              "// K1 and K9\n"
+              "__device__ __forceinline__ unsigned vspl_max_key(float v) {\n"
+              "  const unsigned u = __float_as_uint(v);\n"
+              "  return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) | 0x80000000u);\n"
+              "}\n"
+              "__device__ __forceinline__ float vspl_max_key_value(unsigned k) {\n"
+              "  return __uint_as_float(k ^ (~static_cast<unsigned>(static_cast<int>(k) >> 31) |\n"
+              "                              0x80000000u));\n"
+              "}\n")
+K1_CHEAP_KEY = [K1_MAX_KEY] + [(b, b.replace("vspl_order_key", "vspl_max_key")
+                                .replace("vspl_key_value", "vspl_max_key_value"))
+                               for _, b in K1_KEY_WMAX]
+# atomic: the warps' maxima max-accumulated as keys into one of three shared
+# slots (atomicMax by each warp's lane 0; the slot two rows back cleared by
+# thread 0), so that a frame starts with one broadcast load and no warp
+# reduction
+K1_ATOMIC = [
+    K1_MAX_KEY,
+    ("  for (int i = tid; i < 2 * stride; i += blockDim.x) buf[i] = 0.0f;\n",
+     "  for (int i = tid; i < 2 * stride; i += blockDim.x) buf[i] = 0.0f;\n"
+     "  if (tid < 3) reinterpret_cast<unsigned*>(wmax)[tid] = 0u;\n"),
+    ("  float wv = vspl_warp_max(tid < n ? cur : -CUDART_INF_F);\n"
+     "  if (lane == 0) wmax[warp] = wv;\n",
+     "  unsigned* wkey = reinterpret_cast<unsigned*>(wmax);\n"
+     "  unsigned wv = __reduce_max_sync(VSPL_FULL_MASK, vspl_max_key(tid < n ? cur : -CUDART_INF_F));\n"
+     "  if (lane == 0) atomicMax(wkey, wv);\n"
+     "  int k_rd = 0, k_wr = 1, k_free = 2;\n"),
+    ("    const float max_voiced =\n"
+     "        vspl_warp_max(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)]);\n",
+     "    const float max_voiced = vspl_max_key_value(wkey[k_rd]);\n"
+     "    if (tid == 0) wkey[k_free] = 0u;\n"),
+    ("    wv = vspl_warp_max(tid < n ? nv : -CUDART_INF_F);\n"
+     "    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = wv;\n",
+     "    wv = __reduce_max_sync(VSPL_FULL_MASK, vspl_max_key(tid < n ? nv : -CUDART_INF_F));\n"
+     "    if (lane == 0) atomicMax(wkey + k_wr, wv);\n"
+     "    {\n      const int k = k_rd;\n      k_rd = k_wr;\n      k_wr = k_free;\n      k_free = k;\n    }\n"),
+]
+LEAN_OLD = r"""  float wv = vspl_warp_max(tid < n ? cur : -CUDART_INF_F);
+  if (lane == 0) wmax[warp] = wv;
+
+  // in-band offsets whose source x = s + d is a voiced state
+  const int d_lo = max(-d_max, -tid);
+  const int d_hi = min(d_max, n - 1 - tid);
+  // K1: each thread's observations stream through a VSPL_RING-frame ring in
+  // shared memory, requested VSPL_RING frames ahead: a frame takes less
+  // than a device-memory load
+  if constexpr (kObs == 0)
+    for (int r = 1; r <= VSPL_RING; ++r)
+      vspl_stage_one(obs_ring + (r % VSPL_RING) * S + tid,
+                     obs + static_cast<size_t>(min(r, len - 1)) * S + tid, real && r < len);
+  int p = 0;
+  for (int t = 1; t < len; ++t) {
+    const int slot = (t % VSPL_RING) * S + tid;
+    float obs_t = 0.0f;
+    if constexpr (kObs == 0) {
+      vspl_wait_oldest_row();  // this thread's observation of frame t
+      obs_t = real ? obs_ring[slot] : 0.0f;
+    }
+    vspl_dp_sync<kObs>(dp_threads);
+    if constexpr (kObs != 0) {
+      // every DP thread has read frame t - 1: its slot goes back to the
+      // producers; then frame t's slot
+      if (tid == 0) vspl_mbar_arrive(vspl_smem_addr(&empty[k9_slot]));
+      if (++k9_slot == R) {
+        k9_slot = 0;
+        k9_phase ^= 1;
+      }
+    }
+    // K9: frame t's observation, waited for only when it is needed
+    auto obs_now = [&]() {
+      if constexpr (kObs != 0) {
+        vspl_mbar_wait<false>(vspl_smem_addr(&full[k9_slot]), k9_phase);
+        return obs_ring[k9_slot * S + tid];
+      } else {
+        return obs_t;
+      }
+    };
+    const float* prev = buf + p * stride + d_max;
+    // the voiced maximum of the previous row, from the warps' maxima
+    const float max_voiced =
+        vspl_warp_max(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)]);
+    const float prev_uv = prev[n];
+    float nv = -CUDART_INF_F;
+    if (tid < n) {
+      // the in-band candidates, then the seed (max is exact in any order)
+      float acc;
+      if constexpr (kRegBand) {
+        const float* pv = prev + tid - d_max;  // pv[i] = T1[s + i - d_max]
+        float a[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int i = 0; i < VSPL_BAND_REGS; ++i) a[i % 4] = fmaxf(a[i % 4], pv[i] + band[i]);
+        acc = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+      } else {
+        acc = -CUDART_INF_F;
+        for (int d = d_lo; d <= d_hi; ++d) {
+          const int x = tid + d;
+          acc = fmaxf(acc, prev[x] + prof[cls_s[d + d_max] * S + x]);
+        }
+      }
+      acc = fmaxf(acc, fmaxf(max_voiced + log_tiny, prev_uv + log_c_uv));
+      nv = acc + obs_now();
+    } else if (tid == n) {
+      nv = fmaxf(max_voiced + log_c_vu, prev_uv + log_c_uu) + obs_now();
+    }
+    if (real) {
+      out[static_cast<size_t>(t) * S + tid] = prev[tid];
+      buf[(1 - p) * stride + d_max + tid] = nv;
+      cur = nv;
+    }
+    wv = vspl_warp_max(tid < n ? nv : -CUDART_INF_F);
+    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = wv;
+    p ^= 1;
+    if constexpr (kObs == 0) {
+      // refill the slot just used (its value is in nv) with frame t + VSPL_RING
+      const int r = t + VSPL_RING;
+      vspl_stage_one(obs_ring + slot, obs + static_cast<size_t>(min(r, len - 1)) * S + tid,
+                     real && r < len);
+    }
+  }
+"""
+LEAN_NEW = r"""  // the warps' voiced maxima stay order keys from one warp reduction to the
+  // next (no conversion on the frame's chain)
+  unsigned wv = __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(tid < n ? cur : -CUDART_INF_F));
+  if (lane == 0) wmax[warp] = __uint_as_float(wv);
+
+  // in-band offsets whose source x = s + d is a voiced state
+  const int d_lo = max(-d_max, -tid);
+  const int d_hi = min(d_max, n - 1 - tid);
+  // K1: each thread's observations stream through a VSPL_RING-frame ring in
+  // shared memory, requested VSPL_RING frames ahead: a frame takes less
+  // than a device-memory load
+  if constexpr (kObs == 0)
+    for (int r = 1; r <= VSPL_RING; ++r)
+      vspl_stage_one(obs_ring + (r % VSPL_RING) * S + tid,
+                     obs + static_cast<size_t>(min(r, len - 1)) * S + tid, real && r < len);
+  // addresses advanced a row a frame: the two carry rows and the two rows of
+  // warp maxima (swapped), this thread's t1m1 entry, its ring slot and the
+  // observation its refill brings (each used only when the thread's target
+  // is real and the frame is in the track)
+  float* prev = buf + d_max;
+  float* next = buf + stride + d_max;
+  float* wm_prev = wmax;
+  float* wm_next = wmax + VSPL_MAX_WARPS;
+  float* out_t = out + S + tid;
+  int slot = (1 % VSPL_RING) * S + tid;
+  const float* fill = obs + static_cast<size_t>(1 + VSPL_RING) * S + tid;
+  for (int t = 1; t < len; ++t) {
+    float obs_t = 0.0f;
+    if constexpr (kObs == 0) {
+      vspl_wait_oldest_row();  // this thread's observation of frame t
+      obs_t = real ? obs_ring[slot] : 0.0f;
+    }
+    vspl_dp_sync<kObs>(dp_threads);
+    if constexpr (kObs != 0) {
+      // every DP thread has read frame t - 1: its slot goes back to the
+      // producers; then frame t's slot
+      if (tid == 0) vspl_mbar_arrive(vspl_smem_addr(&empty[k9_slot]));
+      if (++k9_slot == R) {
+        k9_slot = 0;
+        k9_phase ^= 1;
+      }
+    }
+    // K9: frame t's observation, waited for only when it is needed
+    auto obs_now = [&]() {
+      if constexpr (kObs != 0) {
+        vspl_mbar_wait<false>(vspl_smem_addr(&full[k9_slot]), k9_phase);
+        return obs_ring[k9_slot * S + tid];
+      } else {
+        return obs_t;
+      }
+    };
+    // the voiced maximum of the previous row, from the warps' maxima
+    const float max_voiced = vspl_key_value(__reduce_max_sync(
+        VSPL_FULL_MASK, __float_as_uint(wm_prev[lane < nwarps ? lane : 0])));
+    const float prev_uv = prev[n];
+    float nv = -CUDART_INF_F;
+    if (tid < n) {
+      // the in-band candidates, then the seed (max is exact in any order)
+      float acc;
+      if constexpr (kRegBand) {
+        const float* pv = prev + tid - d_max;  // pv[i] = T1[s + i - d_max]
+        float a[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int i = 0; i < VSPL_BAND_REGS; ++i) a[i % 4] = fmaxf(a[i % 4], pv[i] + band[i]);
+        acc = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+      } else {
+        acc = -CUDART_INF_F;
+        for (int d = d_lo; d <= d_hi; ++d) {
+          const int x = tid + d;
+          acc = fmaxf(acc, prev[x] + prof[cls_s[d + d_max] * S + x]);
+        }
+      }
+      acc = fmaxf(acc, fmaxf(max_voiced + log_tiny, prev_uv + log_c_uv));
+      nv = acc + obs_now();
+    } else if (tid == n) {
+      nv = fmaxf(max_voiced + log_c_vu, prev_uv + log_c_uu) + obs_now();
+    }
+    if (real) {
+      *out_t = prev[tid];
+      next[tid] = nv;
+      cur = nv;
+    }
+    out_t += S;
+    wv = __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(tid < n ? nv : -CUDART_INF_F));
+    if (lane == 0) wm_next[warp] = __uint_as_float(wv);
+    float* swap = prev;
+    prev = next;
+    next = swap;
+    swap = wm_prev;
+    wm_prev = wm_next;
+    wm_next = swap;
+    if constexpr (kObs == 0) {
+      // refill the slot just used (its value is in nv) with frame t + VSPL_RING
+      vspl_stage_one(obs_ring + slot, fill, real && t + VSPL_RING < len);
+      fill += S;
+      slot += S;
+      if (slot >= VSPL_RING * S) slot -= VSPL_RING * S;
+    }
+  }
+"""
+# lean_loop: the frame's addresses advanced a row a frame (pointers swapped,
+# the ring slot wrapped) instead of recomputed from t
+K1_LEAN_LOOP = [(on_keys(LEAN_OLD), LEAN_NEW)]
+# chains2, chains8: the in-band candidates in 2 or 8 independent max chains
+# (shipped: 4)
+CHAINS4 = """        float a[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int i = 0; i < VSPL_BAND_REGS; ++i) a[i % 4] = fmaxf(a[i % 4], pv[i] + band[i]);
+        acc = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+"""
+CHAINS2 = """        float a[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int i = 0; i < VSPL_BAND_REGS; ++i) a[i % 2] = fmaxf(a[i % 2], pv[i] + band[i]);
+        acc = fmaxf(a[0], a[1]);
+"""
+CHAINS8 = """        float a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = -CUDART_INF_F;
+#pragma unroll
+        for (int i = 0; i < VSPL_BAND_REGS; ++i) a[i % 8] = fmaxf(a[i % 8], pv[i] + band[i]);
+        acc = fmaxf(fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3])),
+                    fmaxf(fmaxf(a[4], a[5]), fmaxf(a[6], a[7])));
+"""
+K1_VARIANTS = {"store_cur": K1_STORE_CUR, "float_wmax": [(b, a) for a, b in K1_KEY_WMAX],
+               "chains2": [(CHAINS4, CHAINS2)], "chains8": [(CHAINS4, CHAINS8)],
+               "reg_obs": K1_REG_OBS, "cheap_key": K1_CHEAP_KEY,
+               "atomic": [(on_keys(a), b) for a, b in K1_ATOMIC], "lean_loop": K1_LEAN_LOOP}
+
+# K1 (banded_forward_kernel<*, 0>) with clock64 at the parts of a frame,
+# per warp: the rest of the loop (the observation refill), the observation
+# wait and the frame barrier, the voiced-max reduce, the candidate loop
+# (through the observation add), the stores, and the warp max; means per
+# frame of track 0 go to t1_last[0, 7 w + i] (i = 6: %warpid, whose value
+# mod 4 is the warp's SM sub-partition). Its output is not a decode.
+K1_PARTS = ("rest", "wait_barrier", "voiced_max", "candidates", "stores", "warp_max")
+K1_CLOCKED = [
+    ("  int p = 0;\n  for (int t = 1; t < len; ++t) {\n    const int slot = (t % VSPL_RING) * S + tid;\n",
+     "  int p = 0;\n  long long acc_c[6] = {0, 0, 0, 0, 0, 0};\n  long long c_prev = clock64();\n"
+     "  for (int t = 1; t < len; ++t) {\n    const long long c_top = clock64();\n"
+     "    const int slot = (t % VSPL_RING) * S + tid;\n"),
+    ("    vspl_dp_sync<kObs>(dp_threads);\n",
+     "    vspl_dp_sync<kObs>(dp_threads);\n    const long long c0 = clock64();\n"),
+    ("    const float prev_uv = prev[n];\n",
+     "    const float prev_uv = prev[n];\n"
+     "    asm volatile(\"\" ::\"f\"(max_voiced), \"f\"(prev_uv) : \"memory\");\n"
+     "    const long long c1 = clock64();\n"),
+    ("    if (real) {\n      out[static_cast<size_t>(t) * S + tid] = prev[tid];\n",
+     "    asm volatile(\"\" ::\"f\"(nv) : \"memory\");\n    const long long c2 = clock64();\n"
+     "    if (real) {\n      out[static_cast<size_t>(t) * S + tid] = prev[tid];\n"),
+    ("      cur = nv;\n    }\n",
+     "      cur = nv;\n    }\n    const long long c3 = clock64();\n"),
+    ("    p ^= 1;\n",
+     "    p ^= 1;\n    const long long c4 = clock64();\n"
+     "    acc_c[0] += c_top - c_prev;\n    acc_c[1] += c0 - c_top;\n    acc_c[2] += c1 - c0;\n"
+     "    acc_c[3] += c2 - c1;\n    acc_c[4] += c3 - c2;\n    acc_c[5] += c4 - c3;\n"
+     "    c_prev = c4;\n"),
+    ("  if (real) t1_last[static_cast<size_t>(track) * S + tid] = cur;\n}\n",
+     "  if (real) t1_last[static_cast<size_t>(track) * S + tid] = cur;\n"
+     "  if constexpr (kObs == 0) {\n    __syncthreads();\n"
+     "    if (track == 0 && lane == 0 && len > 1) {\n      unsigned wid;\n"
+     "      asm volatile(\"mov.u32 %0, %%warpid;\" : \"=r\"(wid));\n"
+     "#pragma unroll\n      for (int i = 0; i < 6; ++i)\n"
+     "        t1_last[7 * warp + i] = static_cast<float>(acc_c[i]) / (len - 1);\n"
+     "      t1_last[7 * warp + 6] = static_cast<float>(wid);\n    }\n  }\n}\n"),
+]
 BANDED = cuda_lib.CSRC / "viterbi_banded.cu"
 
 ENTRIES = r"""
@@ -130,6 +502,156 @@ extern "C" int probe_obs_clock(const float* logits, const int* idx, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1 with four adjacent targets a thread, one block per track (a candidate
+// design, timed against the shipped layouts): the carry row read as
+// float4s (9 a frame at d_max <= 15, against 32 scalar loads for four
+// targets), the four band columns in registers, a quarter of the warps in
+// the frame barrier and the reductions.
+template <int kHalo>
+__global__ void __launch_bounds__(128, 1) banded_quad_kernel(
+    const float* __restrict__ log_obs, const float* __restrict__ bv, const int* __restrict__ cls,
+    const float* __restrict__ log_pi, const int* __restrict__ lengths, float* __restrict__ t1m1,
+    float* __restrict__ t1_last, int T, int S, int d_max, float log_tiny, float log_c_uv,
+    float log_c_vu, float log_c_uu) {
+  constexpr int kQ = kHalo / 2 + 1;  // float4s a thread reads a frame
+  extern __shared__ __align__(16) unsigned long long smem_u64[];
+  const int threads = blockDim.x;
+  const int stride = 4 * threads + 2 * kHalo + 4;  // source x at x + kHalo
+  float* buf = reinterpret_cast<float*>(smem_u64);  // [2][stride]
+  float* wmax = buf + 2 * stride;                    // [2][32]
+  float* ring = wmax + 2 * VSPL_MAX_WARPS;           // [VSPL_RING][4 threads]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = threads >> 5;
+  const int track = blockIdx.x;
+  const int n = S - 1;
+  const int s0 = 4 * tid;
+  for (int i = tid; i < 2 * stride; i += threads) buf[i] = 0.0f;
+  float band[4][4 * kQ];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4 * kQ; ++e) {
+      const int d = e - kHalo - j;
+      if (d >= -(kHalo - 1) && d <= kHalo - 1) {
+        const int sj = s0 + j, x = sj + d;
+        band[j][e] = (d >= -d_max && d <= d_max && sj < n && x >= 0 && x < n)
+                         ? bv[cls[d + d_max] * S + x] : -CUDART_INF_F;
+      }
+    }
+  __syncthreads();
+  const int len = lengths[track];
+  const size_t base = static_cast<size_t>(track) * T * S;
+  const float* obs = log_obs + base;
+  float* out = t1m1 + base;
+  float cur[4];
+  float wv = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int sj = s0 + j;
+    cur[j] = sj < S ? log_pi[sj] + obs[sj] : -CUDART_INF_F;
+    if (sj < S) {
+      buf[kHalo + sj] = cur[j];
+      out[sj] = 0.0f;
+    }
+    if (sj < n) wv = fmaxf(wv, cur[j]);
+  }
+  wv = vspl_warp_max(wv);
+  if (lane == 0) wmax[warp] = wv;
+  auto stage = [&](int f) {
+    if (f < len)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < S)
+          vspl_copy_async(ring + (f % VSPL_RING) * 4 * threads + s0 + j,
+                          obs + static_cast<size_t>(f) * S + s0 + j);
+    vspl_commit_copies();
+  };
+  for (int f = 1; f <= VSPL_RING; ++f) stage(f);
+  int p = 0;
+  for (int t = 1; t < len; ++t) {
+    vspl_wait_oldest_row();
+    const float4 ob = *reinterpret_cast<const float4*>(ring + (t % VSPL_RING) * 4 * threads + s0);
+    __syncthreads();
+    const float* prev = buf + p * stride;
+    const float max_voiced = vspl_warp_max(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)]);
+    const float prev_uv = prev[kHalo + n];
+    float acc[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = -CUDART_INF_F;
+#pragma unroll
+    for (int k = 0; k < kQ; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(prev + s0 + 4 * k);
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = 4 * k + c, d = e - kHalo - j;
+          if (d >= -(kHalo - 1) && d <= kHalo - 1)
+            acc[j][e & 1] = fmaxf(acc[j][e & 1], vv[c] + band[j][e]);
+        }
+    }
+    const float seed = fmaxf(max_voiced + log_tiny, prev_uv + log_c_uv);
+    const float obv[4] = {ob.x, ob.y, ob.z, ob.w};
+    float nv[4];
+    wv = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int sj = s0 + j;
+      nv[j] = sj < n ? fmaxf(fmaxf(acc[j][0], acc[j][1]), seed) + obv[j]
+            : sj == n ? fmaxf(max_voiced + log_c_vu, prev_uv + log_c_uu) + obv[j]
+                      : -CUDART_INF_F;
+      if (sj < S) out[static_cast<size_t>(t) * S + sj] = cur[j];
+      if (sj < n) wv = fmaxf(wv, nv[j]);
+      cur[j] = nv[j];
+    }
+    *reinterpret_cast<float4*>(buf + (1 - p) * stride + kHalo + s0) =
+        make_float4(nv[0], nv[1], nv[2], nv[3]);
+    wv = vspl_warp_max(wv);
+    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = wv;
+    p ^= 1;
+    stage(t + VSPL_RING);
+  }
+  vspl_wait_all_rows();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (s0 + j < S) t1_last[static_cast<size_t>(track) * S + s0 + j] = cur[j];
+}
+
+extern "C" int probe_k1_quad(const float* log_obs, const float* bv, const int* cls,
+                             const float* log_pi, const int* lengths, float* t1m1,
+                             float* t1_last, int N, int T, int S, int d_max, float log_tiny,
+                             float log_c_uv, float log_c_vu, float log_c_uu) {
+  const int threads = ((S + 3) / 4 + 31) / 32 * 32;
+  if (2 * d_max + 1 > 31 || threads > 128) return cudaErrorInvalidValue;
+  const size_t smem = (2 * (4 * threads + 2 * 16 + 4) + 2 * VSPL_MAX_WARPS +
+                       static_cast<size_t>(VSPL_RING) * 4 * threads) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(banded_quad_kernel<16>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  banded_quad_kernel<16><<<N, threads, smem>>>(log_obs, bv, cls, log_pi, lengths, t1m1, t1_last,
+                                                T, S, d_max, log_tiny, log_c_uv, log_c_vu,
+                                                log_c_uu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of the cluster kernel the card holds at once at (S,
+// d_max, cluster), into *out (0 where no group of SMs holds one).
+extern "C" int probe_cluster_capacity(int S, int d_max, int cluster, int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  const bool narrow = 2 * d_max + 1 <= VSPL_BAND_REGS;
+  cudaError_t e = narrow ? banded_cluster_config<VSPL_BAND_REGS>(S, d_max, cluster, &cfg, attr)
+                         : banded_cluster_config<VSPL_BAND_REGS_WIDE>(S, d_max, cluster, &cfg,
+                                                                      attr);
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3(cluster * 1024);
+  e = narrow ? cudaOccupancyMaxActiveClusters(out, banded_cluster_kernel<VSPL_BAND_REGS>, &cfg)
+             : cudaOccupancyMaxActiveClusters(out, banded_cluster_kernel<VSPL_BAND_REGS_WIDE>,
+                                              &cfg);
+  return static_cast<int>(e);
+}
+
 // K2's pass alone (as vspl_banded_backtrace launches it).
 extern "C" int probe_k2_pass(const float* t1m1, const float* bv, const int* cls,
                              const int* lengths, short* bp, int N, int T, int S, int d_max,
@@ -149,6 +671,18 @@ extern "C" int probe_k2_chase(const short* bp, const int* last, const int* lengt
 P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def patches(name):
+    """The (old, new) source edits of a variant."""
+    if name == "k1_clocked":
+        return K1_CLOCKED
+    if name == "k1_clocked_floats":
+        return K1_VARIANTS["float_wmax"] + K1_CLOCKED
+    for table in (K1_VARIANTS, K1_CLUSTER_VARIANTS, VARIANTS):
+        if name in table:
+            return table[name]
+    raise KeyError(name)
+
+
 def build(names) -> dict:
     """{variant: loaded library}, one nvcc per variant, all started together."""
     out_dir = cuda_lib.BUILD_DIR / "banded_probe"
@@ -157,7 +691,7 @@ def build(names) -> dict:
     procs = {}
     for name in names:
         src = base
-        for old, new in VARIANTS[name]:
+        for old, new in patches(name):
             if src.count(old) != 1:
                 raise RuntimeError(f"{name}: the shipped source no longer has {old[:60]!r}")
             src = src.replace(old, new)
@@ -178,6 +712,10 @@ def build(names) -> dict:
         lib.probe_obs_clock.argtypes = [P_, P_, P_, I_, I_, I_, F_, F_, F_, F_, I_, I_, P_]
         lib.probe_k2_pass.argtypes = [P_, P_, P_, P_, P_, I_, I_, I_, I_, F_, F_, F_, F_]
         lib.probe_k2_chase.argtypes = [P_, P_, P_, P_, I_, I_, I_]
+        for fn, argtypes in VB._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+        lib.probe_k1_quad.argtypes = [P_, P_, P_, P_, P_, P_, P_, I_, I_, I_, I_, F_, F_, F_, F_]
+        lib.probe_cluster_capacity.argtypes = [I_, I_, I_, P_]
         libs[name] = lib
     return libs
 
@@ -237,6 +775,241 @@ def clocked_frames(lib, dev):
                       "warps": warps, "frames_per_warp": frames / warps,
                       "cycles_per_frame": float(o[:, 0].sum() / frames),
                       "ns_per_frame": float(o[:, 1].sum() / frames)})
+
+
+def k1_frames(libs, dev, sass=None):
+    """K1's frame split (the k1_clocked variant, track 0 of the launch) at
+    tonet 361 (d_max 14) and jdc 722 (d_max 40), then K1's ms against the
+    number of tracks at each (one block per track: up to 132 tracks are one
+    wave, more share SMs)."""
+    P = cuda_lib.ptr
+    for label, n_bins, d_max, N, T, Ns in (("tonet 361", 360, 14, 128, 4096, (8, 64, 128, 256, 512)),
+                                          ("jdc 722", 721, 40, 64, 4096, (8, 64, 128, 256))):
+        A, pi = shaped(n_bins, d_max, 0 if n_bins == 360 else 1)
+        bs = VB.extract_banded_structure(A)
+        S = n_bins + 1
+        _, log_pi = prepare_log_params(A, pi)
+        log_pi = torch.as_tensor(log_pi, device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        log_obs = torch.rand((max(Ns), T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
+        bv, cls = VB._profiles(bs, dev)
+        lens = torch.full((N,), T, dtype=torch.int32, device=dev)
+        obs = log_obs[:N].contiguous()
+        t1m1 = torch.empty_like(obs)
+        t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
+        for frame, lib in (("shipped", libs["k1_clocked"]),
+                           ("float maxima", libs["k1_clocked_floats"])):
+            for _ in range(2):  # the first launch warms the caches
+                rc = lib.vspl_banded_forward(P(obs), P(bv), P(cls), P(log_pi), P(lens), P(t1m1),
+                                             P(t1_last), N, T, S, d_max, bv.shape[0],
+                                             VB.LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu,
+                                             None)
+                if rc != 0:
+                    raise RuntimeError(f"K1 clocked: CUDA error {rc}")
+                torch.cuda.synchronize()
+            warps = -(-S // 32)
+            c = t1_last[0, : 7 * warps].view(warps, 7).cpu().numpy().astype(np.float64)
+            sub = (c[:, 6].astype(int) % 4).tolist()
+            emit({"probe": "k1_frame", "frame": frame, "shape": label, "N": N, "T": T, "S": S,
+                  "d_max": d_max, "warps": warps, "sm_clock_mhz": sm_clock_mhz(),
+                  "cycles_per_frame_mean": {k: float(c[:, i].mean())
+                                            for i, k in enumerate(K1_PARTS)},
+                  "cycles_per_frame_max": {k: float(c[:, i].max())
+                                           for i, k in enumerate(K1_PARTS)},
+                  "frame_cycles_mean": float(c[:, :6].sum(axis=1).mean()),
+                  "warp_subpartition": sub,
+                  "warps_per_subpartition": [sub.count(q) for q in range(4)]})
+        del t1m1, obs
+        for n_tr in Ns:
+            o = log_obs[:n_tr].contiguous()
+            lengths = np.full(n_tr, T, np.int32)
+            ms = cuda_ms(lambda: VB.banded_forward(bs, log_pi, o, lengths))
+            emit({"probe": "k1_tracks", "shape": label, "N": n_tr, "T": T, "S": S, "ms": ms,
+                  "us_per_frame": 1e3 * ms / T})
+            del o
+            torch.cuda.empty_cache()
+        del log_obs
+        torch.cuda.empty_cache()
+    if sass:
+        so = next((cuda_lib.BUILD_DIR).glob("libviterbi_banded-*.so"))
+        Path(sass).parent.mkdir(parents=True, exist_ok=True)
+        Path(sass).write_text(subprocess.run(
+            [str(Path(cuda_lib.nvcc_path()).parent / "cuobjdump"), "-sass", str(so)],
+            capture_output=True, text=True, check=True).stdout)
+
+
+K1_GRID = (("tonet 361", 360, 14, (8, 64, 128, 256), (0, 1, 2, 4, 8)),
+           ("361 states, d_max 20", 360, 20, (8, 64, 128), (0, 2, 4, 8)),
+           ("jdc 722", 721, 40, (8, 64, 128), (0, 2, 4, 8)))
+
+
+def k1_layouts(dev, quad, T=4096):
+    """K1 by one block per track (cluster 0) and by clusters of C blocks per
+    track, in turns (each in order, then in reverse), at 361 and 722 states
+    over tracks; every layout bit-equal to cluster 0. With the card's
+    capacity for each cluster size and k1_cluster's choice."""
+    P = cuda_lib.ptr
+    for label, n_bins, d_max, Ns, layouts in K1_GRID:
+        A, pi = shaped(n_bins, d_max, 0 if n_bins == 360 else 1)
+        bs = VB.extract_banded_structure(A)
+        S = n_bins + 1
+        _, log_pi = prepare_log_params(A, pi)
+        cap = {}
+        for C in layouts[1:]:
+            out = ctypes.c_int(0)
+            rc = quad.probe_cluster_capacity(S, d_max, C, ctypes.byref(out))
+            cap[C] = out.value if rc == 0 else f"error {rc}"
+        g = torch.Generator(device=dev).manual_seed(3)
+        log_obs = torch.rand((max(Ns), T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
+        for N in Ns:
+            o = log_obs[:N].contiguous()
+            lengths = np.full(N, T, np.int32)
+            run = {C: (lambda C=C: VB.banded_forward(bs, log_pi, o, lengths, cluster=C))
+                   for C in layouts}
+            if 2 * d_max + 1 <= 31:
+                bv, cls = VB._profiles(bs, dev)
+                lpi = torch.as_tensor(log_pi, device=dev)
+                lens = torch.as_tensor(lengths, device=dev)
+
+                def run_quad():
+                    t1m1 = torch.empty_like(o)
+                    t1 = torch.empty((N, S), dtype=torch.float32, device=dev)
+                    rc = quad.probe_k1_quad(P(o), P(bv), P(cls), P(lpi), P(lens), P(t1m1), P(t1),
+                                            N, T, S, d_max, VB.LOG_TINY, bs.log_c_uv,
+                                            bs.log_c_vu, bs.log_c_uu)
+                    if rc != 0:
+                        raise RuntimeError(f"probe_k1_quad: CUDA error {rc}")
+                    return t1, t1m1
+                run["quad"] = run_quad
+            want = run[0]()
+            for C in list(run)[1:]:
+                got = run[C]()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise RuntimeError(f"K1 cluster {C} differs from one block a track ({label})")
+                del got
+            del want
+            ms = {C: [] for C in run}
+            for C in list(run) + list(reversed(list(run))):
+                ms[C].append(cuda_ms(run[C], iters=3))
+            emit({"probe": "k1_layouts", "shape": label, "N": N, "T": T, "S": S,
+                  "capacity_clusters": cap, "rule": VB.k1_cluster(N, S, d_max),
+                  "ms": {C: float(np.mean(v)) for C, v in ms.items()}, "readings_ms": ms,
+                  "us_per_frame": {C: 1e3 * float(np.mean(v)) / T for C, v in ms.items()}})
+            del o
+            torch.cuda.empty_cache()
+        del log_obs
+        torch.cuda.empty_cache()
+
+
+def k1_variants(libs, dev, T=4096):
+    """The one-block K1 frame's variants (K1_VARIANTS) in turns with the
+    shipped kernel (each in order, then in reverse) at tonet 361 over 8 and
+    128 tracks; each bit-equal to the shipped kernel."""
+    P = cuda_lib.ptr
+    A, pi = shaped(360, 14, 0)
+    bs = VB.extract_banded_structure(A)
+    S = 361
+    _, log_pi = prepare_log_params(A, pi)
+    lpi = torch.as_tensor(log_pi, device=dev)
+    bv, cls = VB._profiles(bs, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    log_obs = torch.rand((128, T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
+    names = ["shipped"] + list(K1_VARIANTS)
+    for N in (8, 128):
+        o = log_obs[:N].contiguous()
+        lens = torch.full((N,), T, dtype=torch.int32, device=dev)
+        lens[1] = T // 2 + 1  # a ragged length among them
+
+        def run(name):
+            t1m1 = torch.empty_like(o)
+            t1 = torch.empty((N, S), dtype=torch.float32, device=dev)
+            rc = libs[name].vspl_banded_forward(P(o), P(bv), P(cls), P(lpi), P(lens), P(t1m1),
+                                                P(t1), N, T, S, 14, bv.shape[0], VB.LOG_TINY,
+                                                bs.log_c_uv, bs.log_c_vu, bs.log_c_uu, None)
+            if rc != 0:
+                raise RuntimeError(f"K1 variant {name}: CUDA error {rc}")
+            return t1, t1m1
+
+        want = run("shipped")
+        for name in names[1:]:
+            got = run(name)
+            same = torch.equal(got[0], want[0]) and all(
+                torch.equal(got[1][n, :L], want[1][n, :L]) for n, L in enumerate(lens.tolist()))
+            if not same:
+                raise RuntimeError(f"K1 variant {name} differs from the shipped kernel")
+        ms = {n: [] for n in names}
+        for name in names + names[::-1]:
+            ms[name].append(cuda_ms(lambda: run(name), iters=5))
+        emit({"probe": "k1_variants", "N": N, "T": T, "S": S,
+              "ms": {n: float(np.mean(v)) for n, v in ms.items()}, "readings_ms": ms})
+        del o
+        torch.cuda.empty_cache()
+
+
+# Variants of K1's cluster kernel (banded_cluster_kernel), timed in turns
+# with the shipped one and bit-equal to it:
+#   cluster_keys  the warps' maxima sent and reduced as order keys (shipped:
+#                 as floats, converted around each warp reduction)
+K1_CLUSTER_VARIANTS = {"cluster_keys": [
+    ("    const float w = vspl_warp_max(real && s < n ? v : -CUDART_INF_F);\n"
+     "    if (lane < C) vspl_store_remote(q ? wm1 : wm0, w, q ? wmb1 : wmb0);\n",
+     "    const unsigned w =\n"
+     "        __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(real && s < n ? v : -CUDART_INF_F));\n"
+     "    if (lane < C) vspl_store_remote(q ? wm1 : wm0, __uint_as_float(w), q ? wmb1 : wmb0);\n"),
+    ("    const float max_voiced = vspl_warp_max(wmax[b * VSPL_MAX_WARPS + (lane < n_wmax ? lane : 0)]);\n",
+     "    const float max_voiced = vspl_key_value(__reduce_max_sync(\n"
+     "        VSPL_FULL_MASK, __float_as_uint(wmax[b * VSPL_MAX_WARPS + (lane < n_wmax ? lane : 0)])));\n"),
+]}
+
+
+def k1_cluster_variants(libs, dev, T=4096):
+    """K1's cluster kernel and its variants (K1_CLUSTER_VARIANTS) in turns at
+    jdc 722 (d_max 40) over 8 tracks (8 blocks a track) and 64 (2 a
+    track); each bit-equal to the shipped kernel."""
+    P = cuda_lib.ptr
+    A, pi = shaped(721, 40, 1)
+    bs = VB.extract_banded_structure(A)
+    S = 722
+    _, log_pi = prepare_log_params(A, pi)
+    lpi = torch.as_tensor(log_pi, device=dev)
+    bv, cls = VB._profiles(bs, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    log_obs = torch.rand((64, T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
+    names = ["shipped"] + list(K1_CLUSTER_VARIANTS)
+    for N, C in ((8, 8), (64, 2)):
+        o = log_obs[:N].contiguous()
+        lens = torch.full((N,), T, dtype=torch.int32, device=dev)
+        lens[1] = T // 2 + 1
+
+        def run(name):
+            t1m1 = torch.empty_like(o)
+            t1 = torch.empty((N, S), dtype=torch.float32, device=dev)
+            rc = libs[name].vspl_banded_forward_cluster(
+                P(o), P(bv), P(cls), P(lpi), P(lens), P(t1m1), P(t1), N, T, S, 40, C,
+                VB.LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu, None)
+            if rc != 0:
+                raise RuntimeError(f"K1 cluster variant {name}: CUDA error {rc}")
+            return t1, t1m1
+
+        want = run("shipped")
+        for name in names[1:]:
+            got = run(name)
+            if not (torch.equal(got[0], want[0]) and all(
+                    torch.equal(got[1][n, :L], want[1][n, :L]) for n, L in enumerate(lens.tolist()))):
+                raise RuntimeError(f"K1 cluster variant {name} differs from the shipped kernel")
+        ms = {n: [] for n in names}
+        for name in names + names[::-1]:
+            ms[name].append(cuda_ms(lambda: run(name), iters=5))
+        emit({"probe": "k1_cluster_variants", "N": N, "C": C, "T": T, "S": S,
+              "ms": {n: float(np.mean(v)) for n, v in ms.items()}, "readings_ms": ms})
+        del o
+        torch.cuda.empty_cache()
+
+
+def sm_clock_mhz() -> str:
+    """The SM clock nvidia-smi reads now (the card sets it itself)."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def k9_layouts(dev):
@@ -326,7 +1099,7 @@ def k2_split(libs, dev):
                "K2_route": VB.k2_route(bs, N, T, last),
                "bp_scratch_bytes": bp.numel() * 2, "pass_ms": {}}
         for name, vlib in libs.items():
-            if name == "shipped":
+            if name not in VARIANTS or name == "shipped":
                 continue
             shipped_a = cuda_ms(lambda: run_pass(lib))
             ms = cuda_ms(lambda: run_pass(vlib))
@@ -430,10 +1203,17 @@ def k2_voicing(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", default="obs,k9,k2,routes,voicing",
-                    help="comma-separated: obs (clocked frames), k9 (layouts), k2 (split), "
-                         "routes (K2's two routes), voicing (the routes by voiced share)")
-    parts = set(ap.parse_args(argv).parts.split(","))
+    ap.add_argument("--parts", default="k1,k1layouts,k1variants,k1cluster,obs,k9,k2,routes,voicing",
+                    help="comma-separated: k1 (K1's clocked frame and ms by tracks), "
+                         "k1layouts (K1 by one block and by clusters a track), k1variants "
+                         "(the one-block frame's variants), k1cluster (the cluster kernel's), obs "
+                         "(clocked observation frames), k9 (layouts), k2 (split), routes (K2's "
+                         "two routes), voicing (the routes by voiced share)")
+    ap.add_argument("--sass", default=None,
+                    help="with the k1 part: write cuobjdump -sass of the built K1/K2/K9 library "
+                         "to this file (the instructions of the frame loop)")
+    args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
         print("gpu_banded_probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -442,7 +1222,18 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda")
     cuda_lib.build(["viterbi_banded", "obs"])
-    libs = build(list(VARIANTS) if "k2" in parts else ["shipped"])
+    libs = build((list(VARIANTS) if "k2" in parts else ["shipped"])
+                 + (["k1_clocked", "k1_clocked_floats"] if "k1" in parts else [])
+                 + (list(K1_VARIANTS) if "k1variants" in parts else [])
+                 + (list(K1_CLUSTER_VARIANTS) if "k1cluster" in parts else []))
+    if "k1" in parts:
+        k1_frames(libs, dev, args.sass)
+    if "k1layouts" in parts:
+        k1_layouts(dev, libs["shipped"])
+    if "k1variants" in parts:
+        k1_variants(libs, dev)
+    if "k1cluster" in parts:
+        k1_cluster_variants(libs, dev)
     if "obs" in parts:
         clocked_frames(libs["shipped"], dev)
     if "k9" in parts:

@@ -8,9 +8,6 @@ reverse), on the shapes the single-track and time-sharded decodes give them.
 
 K7 variants:
   shipped     the source as it is
-  pair_store  a warp's two new values go to each block as one 8-byte
-              st.async, the carry row in per-block slots of even length
-              (shipped: one 4-byte store a value, the row in state order)
   cluster16   16-block clusters at every state count (shipped: 8 up to 384)
   smem_table  the table slice read from shared memory every frame, each lane
               its own float4 slots (shipped: held in registers)
@@ -64,7 +61,7 @@ SMEM_TABLE = [
     tab[k].y = x + 1 < S ? __ldg(brow + x + 1) : 0.0f;
     tab[k].z = x + 2 < S ? __ldg(brow + x + 2) : 0.0f;
     tab[k].w = x + 3 < S ? __ldg(brow + x + 3) : 0.0f;
-  }""", """  float4* tabs = reinterpret_cast<float4*>(ring + VSPL_RING * ring_w) + j * (P / 4);
+  }""", """  float4* tabs = reinterpret_cast<float4*>(ring + VSPL_RING * kG * ring_w) + j * (P / 4);
   const float* brow = logB + static_cast<size_t>(min(s, S - 1)) * S;
   for (int k = 0; k < kVec; ++k) {
     const int x = 4 * (g + VSPL_WIN_LANES * k);
@@ -72,203 +69,50 @@ SMEM_TABLE = [
         x < S ? __ldg(brow + x) : 0.0f, x + 1 < S ? __ldg(brow + x + 1) : 0.0f,
         x + 2 < S ? __ldg(brow + x + 2) : 0.0f, x + 3 < S ? __ldg(brow + x + 3) : 0.0f);
   }"""),
-    ("""        const float4 v = prev[g + VSPL_WIN_LANES * k];
-        a0 = fmaxf(a0, v.x + tab[k].x);
-        a1 = fmaxf(a1, v.y + tab[k].y);
-        a2 = fmaxf(a2, v.z + tab[k].z);
-        a3 = fmaxf(a3, v.w + tab[k].w);""", """        const float4 v = prev[g + VSPL_WIN_LANES * k];
-        const float4 tk = tabs[g + VSPL_WIN_LANES * k];
-        a0 = fmaxf(a0, v.x + tk.x);
-        a1 = fmaxf(a1, v.y + tk.y);
-        a2 = fmaxf(a2, v.z + tk.z);
-        a3 = fmaxf(a3, v.w + tk.w);"""),
-    ("""(2 * 64 * kVec + VSPL_RING * 2 * warps) * sizeof(float);""",
-     """(2 * 64 * kVec + VSPL_RING * 2 * warps + 2 * warps * 64 * kVec) * sizeof(float);"""),
+    ("""          const float4 v = prev[g + VSPL_WIN_LANES * k];
+          a0 = fmaxf(a0, v.x + tab[k].x);
+          a1 = fmaxf(a1, v.y + tab[k].y);
+          a2 = fmaxf(a2, v.z + tab[k].z);
+          a3 = fmaxf(a3, v.w + tab[k].w);""", """          const float4 v = prev[g + VSPL_WIN_LANES * k];
+          const float4 tk = tabs[g + VSPL_WIN_LANES * k];
+          a0 = fmaxf(a0, v.x + tk.x);
+          a1 = fmaxf(a1, v.y + tk.y);
+          a2 = fmaxf(a2, v.z + tk.z);
+          a3 = fmaxf(a3, v.w + tk.w);"""),
+    ("""(2 * kG * 64 * kVec + VSPL_RING * kG * 2 * warps) * sizeof(float);""",
+     """(2 * kG * 64 * kVec + VSPL_RING * kG * 2 * warps + 2 * warps * 64 * kVec) *
+                      sizeof(float);"""),
 ]
-KERNEL_BEGIN = "// One cluster per window. Block `rank` owns the targets"
-KERNEL_END = "// K7's targets a block owns at S states."
-# the K7 kernel that stores a warp's two new values as one 8-byte st.async,
-# the carry row in per-block slots of even length (replaces the text from
-# KERNEL_BEGIN to KERNEL_END)
-PAIR_KERNEL = r"""// Stores (a, b) at `dst` (8-byte aligned) in a cluster block's shared memory
-// and completes 8 bytes of the transaction count of that block's mbarrier.
-__device__ __forceinline__ void vspl_store_remote2(unsigned dst, float a, float b, unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
-      ::"r"(dst), "r"(__float_as_uint(a)), "r"(__float_as_uint(b)), "r"(bar) : "memory");
-}
-
-// One cluster per window. Block `rank` owns the targets [rank * chunk,
-// (rank + 1) * chunk); warp w the local targets 2w and 2w + 1, lane l the
-// target 2w + l / 16 and the float4 slots (l % 16) + 16 k, k < kVec, of the
-// carry row. The row keeps block r's targets at [r * cw, r * cw + chunk),
-// cw the chunk rounded up to even, so that a warp's two new values are one
-// 8-byte store; C cw <= P = 64 kVec, and -inf everywhere else. Shared
-// memory: two mbarriers, the two carry rows [2][P] and the observation ring
-// [VSPL_RING][2 warps].
-template <int kVec>
-__global__ void __launch_bounds__(32 * VSPL_WIN_CHUNK / 2, 1) window_forward_kernel(
-    const float* __restrict__ log_obs,   // [N, W, S]
-    const float* __restrict__ logB,      // [S, S]
-    const float* __restrict__ log_pi,    // [S]
-    const int* __restrict__ lengths,     // [N], 1 <= len <= W
-    const int* __restrict__ reset_rows,  // [N], -1 <= row < len
-    float* __restrict__ t1m1,            // [N, W, S]
-    float* __restrict__ t1_last,         // [N, S]
-    int W, int S, int chunk) {
-  constexpr int P = 64 * kVec;
-  extern __shared__ __align__(16) unsigned long long smem_u64[];
-  unsigned long long* bar = smem_u64;                          // [2]
-  float* rows = reinterpret_cast<float*>(smem_u64 + 2);         // [2][P]
-  float* ring = rows + 2 * P;                                   // [VSPL_RING][2 warps]
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int win = blockIdx.x / C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane & (VSPL_WIN_LANES - 1);
-  const int cw = (chunk + 1) & ~1;
-  const int j = 2 * warp + (lane >> 4);  // local target
-  const int s = rank * chunk + j;
-  const int sa = rank * chunk + 2 * warp;  // the warp's first target
-  const bool real = j < chunk && s < S;
-  const bool in_loop = sa < S;                           // the first target is real
-  const bool real_b = 2 * warp + 1 < chunk && sa + 1 < S;  // and the second
-  const bool sender = in_loop && lane < C;               // sends the pair to block `lane`
-  const bool keeper = real && g == 0;  // stages obs, writes t1m1 and t1_last
-  const int ring_w = blockDim.x / 16;  // ring row: one slot per target
-  const int len = lengths[win];
-  const int reset = reset_rows[win];
-  const size_t base = static_cast<size_t>(win) * W * S;
-  const float* obs = log_obs + base;
-  float* out = t1m1 + base;
-  // a row's bytes: 8 from each warp of the cluster whose first target is real
-  unsigned row_bytes = 0;
-  for (int r = 0; r < C; ++r)
-    for (int w = 0; 2 * w < chunk && r * chunk + 2 * w < S; ++w) row_bytes += 8;
-
-  if (threadIdx.x == 0) {
-    vspl_mbar_init(vspl_smem_addr(&bar[0]), 1);
-    vspl_mbar_init(vspl_smem_addr(&bar[1]), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  for (int i = threadIdx.x; i < 2 * P; i += blockDim.x) rows[i] = -CUDART_INF_F;
-  // the table slice, once per window, in the row's layout: padding adds 0 to
-  // a -inf entry
-  float4 tab[kVec];
-  const float* brow = logB + static_cast<size_t>(min(s, S - 1)) * S;
-  auto entry = [&](int pos) {
-    const int r = pos / cw, jp = pos - r * cw, src = r * chunk + jp;
-    return r < C && jp < chunk && src < S ? __ldg(brow + src) : 0.0f;
-  };
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    const int x = 4 * (g + VSPL_WIN_LANES * k);
-    tab[k] = make_float4(entry(x), entry(x + 1), entry(x + 2), entry(x + 3));
-  }
-  // where this warp's stores go: row buffer 0 or 1 of block `lane`, and its
-  // mbarrier (named registers: an array indexed by the frame would live in
-  // local memory)
-  unsigned row0 = 0u, row1 = 0u, bar0 = 0u, bar1 = 0u;
-  if (sender) {
-    row0 = vspl_map_rank(rows + rank * cw + 2 * warp, lane);
-    row1 = vspl_map_rank(rows + P + rank * cw + 2 * warp, lane);
-    bar0 = vspl_map_rank(&bar[0], lane);
-    bar1 = vspl_map_rank(&bar[1], lane);
-  }
-  const float lpi_a = in_loop ? log_pi[sa] : 0.0f;
-  const float lpi_b = real_b ? log_pi[sa + 1] : 0.0f;
-  for (int i = 0; i < VSPL_RING; ++i) {
-    const int f = 1 + i;
-    if (keeper) vspl_stage_one(ring + (f % VSPL_RING) * ring_w + j,
-                               obs + static_cast<size_t>(f) * S + s, f < len);
-    else vspl_commit_copies();
-  }
-  cluster.sync();  // every block's barriers and padding are in place
-  if (threadIdx.x == 0) {
-    vspl_mbar_expect(vspl_smem_addr(&bar[0]), row_bytes);
-    if (len > 1) vspl_mbar_expect(vspl_smem_addr(&bar[1]), row_bytes);
-  }
-  // frame 0: K7 with reset row 0, log_pi + obs; otherwise a cold start; a
-  // padding target sends -inf
-  float va = 0.0f, vb = -CUDART_INF_F;
-  if (in_loop) va = reset == 0 ? lpi_a + obs[sa] : obs[sa];
-  if (real_b) vb = reset == 0 ? lpi_b + obs[sa + 1] : obs[sa + 1];
-  float cur = lane < 16 ? va : vb;  // this lane's target's T1
-  if (sender) vspl_store_remote2(row0, va, vb, bar0);
-  if (keeper) out[s] = 0.0f;
-
-  if (in_loop) {
-    for (int t = 1; t < len; ++t) {
-      const int r = t - 1, b = r & 1;  // row t - 1 is in buffer b
-      vspl_wait_oldest_row();          // frame t's observations (the keepers' copies)
-      __syncwarp();
-      const float2 ob = *reinterpret_cast<const float2*>(ring + (t % VSPL_RING) * ring_w + 2 * warp);
-      vspl_mbar_wait(vspl_smem_addr(&bar[b]), (r >> 1) & 1);
-      if (threadIdx.x == 0 && r + 2 < len) vspl_mbar_expect(vspl_smem_addr(&bar[b]), row_bytes);
-      const float4* prev = reinterpret_cast<const float4*>(rows + b * P);
-      float a0 = -CUDART_INF_F, a1 = -CUDART_INF_F, a2 = -CUDART_INF_F, a3 = -CUDART_INF_F;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const float4 v = prev[g + VSPL_WIN_LANES * k];
-        a0 = fmaxf(a0, v.x + tab[k].x);
-        a1 = fmaxf(a1, v.y + tab[k].y);
-        a2 = fmaxf(a2, v.z + tab[k].z);
-        a3 = fmaxf(a3, v.w + tab[k].w);
-      }
-      const unsigned key = vspl_order_key(fmaxf(fmaxf(a0, a1), fmaxf(a2, a3)));
-      const float ma = vspl_key_value(__reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? key : 0u));
-      const float mb = vspl_key_value(__reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? 0u : key));
-      const float na = t == reset ? lpi_a + ob.x : ma + ob.x;
-      const float nb = !real_b ? -CUDART_INF_F : t == reset ? lpi_b + ob.y : mb + ob.y;
-      if (sender) vspl_store_remote2(b ? row0 : row1, na, nb, b ? bar0 : bar1);
-      if (keeper) out[static_cast<size_t>(t) * S + s] = cur;
-      cur = lane < 16 ? na : nb;
-      // refill the ring slot just read with frame t + VSPL_RING
-      const int f = t + VSPL_RING;
-      if (keeper) vspl_stage_one(ring + (f % VSPL_RING) * ring_w + j,
-                                 obs + static_cast<size_t>(f) * S + s, f < len);
-      else vspl_commit_copies();
-    }
-  }
-  if (keeper) t1_last[static_cast<size_t>(win) * S + s] = cur;
-  // every store into this block has landed before it may exit
-  if (threadIdx.x == 0) vspl_mbar_wait(vspl_smem_addr(&bar[(len - 1) & 1]), ((len - 1) >> 1) & 1);
-  vspl_wait_all_rows();
-  cluster.sync();
-}
-
-"""
 WAIT = "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;"
 RULE = "const int c0 = S <= 8 * VSPL_WIN_CHUNK ? 8 : 16;"
 VARIANTS = {
     "shipped": [],
-    "pair_store": [(KERNEL_BEGIN, PAIR_KERNEL)],
     "cluster16": [(RULE, "const int c0 = 16;")],
     "smem_table": SMEM_TABLE,
     "wait_cta": [(WAIT, WAIT.replace(".acquire.cluster", ""))],
     "test_wait": [(WAIT, WAIT.replace("try_wait", "test_wait"))],
     "clocked": [
         ("""  if (in_loop) {
-    for (int t = 1; t < len; ++t) {
+    for (int t = 1; t < max_len; ++t) {
 """, """  long long acc[4] = {0, 0, 0, 0};
   if (in_loop) {
-    for (int t = 1; t < len; ++t) {
+    for (int t = 1; t < max_len; ++t) {
       const long long c0 = clock64();
 """),
         ("""      vspl_mbar_wait(vspl_smem_addr(&bar[b]), (r >> 1) & 1);
 """, """      const long long c1 = clock64();
       vspl_mbar_wait(vspl_smem_addr(&bar[b]), (r >> 1) & 1);
       const long long c2 = clock64();
+      long long c3 = c2;
 """),
-        ("""      if (sender) vspl_store_remote(b ? row0 : row1, nv, b ? bar0 : bar1);
-""", """      if (sender) vspl_store_remote(b ? row0 : row1, nv, b ? bar0 : bar1);
-      const long long c3 = clock64();
+        ("""        if (sender) vspl_store_remote((b ? row0 : row1) + 4u * i * P, nv, b ? bar0 : bar1);
+""", """        if (sender) vspl_store_remote((b ? row0 : row1) + 4u * i * P, nv, b ? bar0 : bar1);
+        c3 = clock64();
 """),
-        ("""      else vspl_commit_copies();
+        ("""      stage(t + VSPL_RING);
     }
   }
-""", """      else vspl_commit_copies();
+""", """      stage(t + VSPL_RING);
       const long long c4 = clock64();
       acc[0] += c1 - c0;
       acc[1] += c2 - c1;
@@ -282,9 +126,9 @@ VARIANTS = {
 }
 """, """  vspl_wait_all_rows();
   cluster.sync();
-  if (win == 0 && rank == 0 && lane == 0 && in_loop && len > 1) {
+  if (win0 == 0 && rank == 0 && lane == 0 && in_loop && max_len > 1) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) t1_last[4 * warp + i] = static_cast<float>(acc[i]) / (len - 1);
+    for (int i = 0; i < 4; ++i) t1_last[4 * warp + i] = static_cast<float>(acc[i]) / (max_len - 1);
   }
 }
 """),
@@ -293,7 +137,7 @@ VARIANTS = {
                                             states, N, W, Sp, st));
 """, "  return 0;\n")],
 }
-K7_VARIANTS = ("shipped", "pair_store", "cluster16", "smem_table", "wait_cta", "test_wait")
+K7_VARIANTS = ("shipped", "cluster16", "smem_table", "wait_cta", "test_wait")
 K8_VARIANTS = ("shipped", "pass_only")
 
 
@@ -310,10 +154,7 @@ def build_all() -> dict:
         for old, new in subs:
             if src.count(old) != 1:
                 raise RuntimeError(f"{name}: the shipped source no longer has {old[:60]!r}")
-            if old == KERNEL_BEGIN:  # the whole kernel
-                src = src[:src.index(KERNEL_BEGIN)] + new + src[src.index(KERNEL_END):]
-            else:
-                src = src.replace(old, new)
+            src = src.replace(old, new)
         cu = out_dir / f"{name}.cu"
         cu.write_text(src)
         lib = out_dir / f"lib{name}.so"

@@ -227,3 +227,52 @@ def test_backpointer_pass_then_chase_on_ties_matches_plain_and_pallas(
         np.testing.assert_array_equal(got[n, :L], path[n, :L])
         np.testing.assert_array_equal(want[n, :L], path[n, :L])
         np.testing.assert_array_equal(st_j[n, :L], path[n, :L])
+
+
+@pytest.mark.parametrize("N,n_bins,d_max,cluster", [
+    (128, 360, 14, 0),   # bench.py's headline and its 361 serving shape
+    (8, 360, 14, 0),     # the decode CLI's batch
+    (64, 360, 14, 0),    # a streaming pool's push
+    (64, 721, 40, 2),    # jdc 722 (timing and serving shapes)
+    (16, 721, 40, 8),    # chip_smoke's equality phase at 722 states
+    (17, 721, 40, 4),
+    (34, 721, 40, 2),
+    (128, 721, 40, 2),   # more tracks than one block an SM: the smallest cluster
+    (8, 360, 20, 8),     # a band too wide for one block's registers at 361
+    (8, 360, 50, 0),     # a band too wide for any cluster's registers
+])
+def test_k1_cluster_at_the_benchmark_shapes(N, n_bins, d_max, cluster):
+    """k1_cluster keeps one block per track where its band column fits its
+    registers, and otherwise takes the cluster kernel at the largest
+    cluster that keeps one block an SM (132 SMs)."""
+    assert TB.k1_cluster(N, n_bins + 1, d_max) == cluster
+
+
+@pytest.mark.parametrize("S,d_max,C,fits", [
+    (722, 40, 1, False),  # 736 threads in one block
+    (722, 40, 2, True),
+    (361, 14, 9, False),  # more than 8 blocks
+    (61, 20, 4, False),   # blocks of fewer targets than d_max
+    (361, 42, 2, False),  # 85 band offsets
+    (501, 41, 2, True),   # 83
+    (57, 8, 8, True),     # the last block holds the unvoiced state alone
+    (49, 6, 8, False),    # the last block would hold no target (7 blocks of 7)
+])
+def test_k1_cluster_fits_the_kernel_limits(S, d_max, C, fits):
+    """k1_cluster_fits states the cluster kernel's limits, which its C entry
+    enforces (the GPU tests hold the entry to them)."""
+    assert TB.k1_cluster_fits(S, d_max, C) is fits
+
+
+@pytest.mark.parametrize("cluster", [None, 0, 2])
+def test_banded_forward_cluster_on_the_cpu(rng, one_cpu_thread, cluster):
+    """banded_forward's `cluster` changes only the card's layout: a CPU
+    tensor takes the plain version by any."""
+    A, pi, _ = _shaped(TP, _tracks(rng, 60), 60, 6)
+    bs = TB.extract_banded_structure(A)
+    lens = np.array([16, 1, 9], np.int32)
+    log_obs = torch.from_numpy(_log_obs(rng, 3, 16, 61))
+    log_pi = prepare_log_params(A, pi)[1]
+    want = TB.banded_forward_plain(bs, torch.from_numpy(log_pi), log_obs, lens)
+    got = TB.banded_forward(bs, log_pi, log_obs, lens, cluster=cluster)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

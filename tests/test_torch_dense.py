@@ -92,3 +92,56 @@ def test_decode_api_dispatch_matches_oracle(rng, banded):
         np.testing.assert_array_equal(
             g, viterbi_oracle(transition_matrix=A, prob_init=pi, probs_st=obs)
         )
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """Bit-for-bit comparisons: PyTorch on one thread (ROADMAP section 3)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("S", [90, 361])
+def test_dense_forward_plain_is_the_window_forward_from_reset_row_0(rng, one_cpu_thread, S):
+    """K3's contract on the card rests on this: the dense batched forward
+    is K7's forward with every reset row 0, bit for bit, on ragged lengths
+    (1 and 2 among them) and a tie-heavy track; and dense_forward on a CPU
+    tensor gives it by every route."""
+    A, pi, _ = random_hmm(rng, S, 8)
+    log_B, log_pi = (torch.from_numpy(x) for x in prepare_log_params(A, pi))
+    lens = np.array([40, 1, 2, 33, 40, 7], np.int32)
+    log_obs = torch.from_numpy(_batch(rng, A, len(lens), 40))
+    t1_d, t1m1_d = TD.dense_forward_plain(log_B, log_pi, log_obs, lens)
+    t1_w, t1m1_w = TD.window_forward_plain(log_B, log_pi, log_obs, lens,
+                                           np.zeros(len(lens), np.int32))
+    assert torch.equal(t1_d, t1_w) and torch.equal(t1m1_d, t1m1_w)
+    for route in (None, *TD.DENSE_ROUTES):
+        t1_r, t1m1_r = TD.dense_forward(log_B, log_pi, log_obs, lens, route=route)
+        assert torch.equal(t1_r, t1_d) and torch.equal(t1m1_r, t1m1_d)
+    with pytest.raises(ValueError):
+        TD.dense_forward(log_B, log_pi, log_obs, lens, route="scan")
+
+
+@pytest.mark.parametrize("S,route", [(361, "window"), (722, "window"), (768, "window"),
+                                     (769, "cluster"), (1024, "cluster")])
+def test_k3_route_by_states(S, route):
+    """K3 takes K7's kernel up to the 768 states it holds, its cluster
+    kernel above."""
+    assert TD.k3_route(S) == route
+
+
+@pytest.mark.parametrize("N,clusters,G", [
+    (16, 7, 3),    # imm 722 (16-block clusters: 7 at once on an H100)
+    (4, 7, 1),     # the imm DecoderSetup's batch
+    (16, 15, 2),   # random 361 (8-block clusters: 15 at once)
+    (64, 7, 2),    # a 64-stream dense push at 722 states
+    (64, 15, 3),   # and at 361
+    (7, 7, 1),     # one wave
+    (8, 7, 2),     # one track more than a wave
+])
+def test_k3_tracks_per_cluster_at_the_benchmark_shapes(N, clusters, G):
+    """k3_tracks_per_cluster's choice by the measured cost of G tracks a
+    cluster against the waves they save."""
+    assert TD.k3_tracks_per_cluster(N, clusters) == G

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card: K1-K4
 with exact equality of t1_last, of t1m1 up to each track's length, and of
-the decoded states, with ragged lengths and N not a multiple of 8; K2 also
+the decoded states, with ragged lengths and N not a multiple of 8; K1 by
+every layout (one block a track, clusters of 1-8 blocks) and K3 by both
+routes (K7's kernel at 1-4 tracks a cluster, the cluster kernel), also
+over more tracks than the card holds clusters at once; K2 also
 on a tie fixture whose chase meets equal maxima at every step; K5/K6
 under the observation contract (hmm/obs_fused.py::obs_contract); K9
 bit-equal to K5/K6 -> K1, at its own producer and ring layout and at
@@ -86,6 +89,77 @@ def test_cuda_k1_k2_match_plain(cuda, rng, n_bins, d_max):
 K2_LENGTHS = np.array([160, 1, 2, 97, 160, 33, 2, 159, 64, 17, 120], np.int32)
 
 
+def _k1_against_plain(cuda, rng, n_bins, d_max, cluster, lengths, T):
+    A, pi = _shaped(rng, n_bins, d_max)
+    _, log_pi = prepare_log_params(A, pi)
+    bs = TB.extract_banded_structure(A)
+    assert bs.d_max == d_max
+    log_obs = _log_obs(rng, len(lengths), T, n_bins + 1)
+    launches = TB.banded_forward.launches
+    t1_p, t1m1_p = TB.banded_forward_plain(bs, torch.from_numpy(log_pi), log_obs, lengths)
+    t1_k, t1m1_k = TB.banded_forward(bs, log_pi, log_obs.to(cuda), lengths, cluster=cluster)
+    assert TB.banded_forward.launches == launches + 1
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(t1_k.cpu().numpy(), t1_p.numpy())
+    for n, L in enumerate(lengths):
+        np.testing.assert_array_equal(t1m1_k[n, :L].cpu().numpy(), t1m1_p[n, :L].numpy())
+
+
+# (n_bins, d_max, cluster sizes): 361 and 722 states at every layout the
+# cluster kernel takes there; the register band's two widths on both sides
+# of their boundary (2 d_max + 1 = 31 | 33, 83); a last block of fewer
+# than d_max targets (29 states over 2 blocks at d_max 15, 49 over 4 at
+# 13), and one that owns only the unvoiced state (57 over 8 at 8)
+K1_LAYOUTS = [(360, 14, (0, 1, 2, 4, 8)), (721, 40, (0, 2, 4, 8)), (200, 15, (1, 2, 8)),
+              (200, 16, (1, 2, 8)), (500, 41, (2, 4)), (28, 15, (1, 2)), (48, 13, (4,)),
+              (56, 8, (8,))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins,d_max,clusters", K1_LAYOUTS)
+def test_cuda_k1_every_layout_matches_plain(cuda, rng, n_bins, d_max, clusters):
+    """K1 by one block per track (cluster 0) and by clusters of 1-8 blocks
+    per track, on ragged lengths (1 and 2 among them) and tie-heavy tracks:
+    t1_last and t1m1 up to each length equal the plain version's, bit for
+    bit."""
+    lengths = np.array([96, 50, 1, 2, 77, 96, 13], np.int32)
+    for cluster in clusters:
+        _k1_against_plain(cuda, rng, n_bins, d_max, cluster, lengths, 96)
+
+
+# track counts on both sides of each of k1_cluster's boundaries at 722
+# states and 132 SMs (8 | 4 | 2 blocks a track at 16 | 17 and 33 | 34
+# tracks; the smallest cluster beyond 66)
+K1_RULE_TRACKS = (2, 16, 17, 33, 34, 66, 67)
+
+
+@pytest.mark.gpu
+def test_cuda_k1_rule_layouts_match_plain(cuda, rng):
+    """K1 by the layout k1_cluster picks, at the track counts on both sides
+    of each of its boundaries (361 and 722 states), on ragged lengths."""
+    for n_bins, d_max in ((360, 14), (721, 40)):
+        for N in K1_RULE_TRACKS:
+            lengths = np.resize(np.array([40, 1, 2, 39, 17], np.int32), N)
+            _k1_against_plain(cuda, rng, n_bins, d_max, None, lengths, 40)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins,d_max,cluster", [(721, 40, 1), (360, 14, 9), (360, 50, 2),
+                                                  (60, 20, 4), (360, 42, 2)])
+def test_cuda_k1_refuses_layouts_it_cannot_run(cuda, rng, n_bins, d_max, cluster):
+    """The cluster kernel raises rather than runs a layout it cannot hold:
+    more than 384 threads a block (722 states in one block), more than 8
+    blocks, a band wider than its registers (2 d_max + 1 > 84), blocks of
+    fewer targets than d_max."""
+    A, pi = _shaped(rng, n_bins, min(d_max, n_bins - 2))
+    bs = TB.extract_banded_structure(A)
+    log_obs = _log_obs(rng, 2, 8, n_bins + 1).to(cuda)
+    if bs.d_max != d_max:
+        pytest.skip("the shaped matrix did not reach this d_max")
+    with pytest.raises(RuntimeError, match="K1"):
+        TB.banded_forward(bs, prepare_log_params(A, pi)[1], log_obs, [8, 3], cluster=cluster)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_bins,d_max", [(360, 14), (721, 40), (300, 50)])
 @pytest.mark.parametrize("fixture", ["forward", "ties"])
@@ -166,6 +240,65 @@ def test_cuda_k3_k4_match_plain(cuda, rng, S):
     np.testing.assert_array_equal(
         st_k[0].cpu().numpy(), viterbi_oracle_log(log_B, log_pi, log_obs[0].numpy())
     )
+
+
+def _dense_case(rng, S):
+    if S == 722:
+        return TP.imm_transition_matrix(20, 721), np.full(S, 1.0 / S)
+    A = rng.random((S, S)).astype(np.float32) ** 4
+    A /= A.sum(1, keepdims=True)
+    return A, np.full(S, 1.0 / S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [361, 722, 769])
+def test_cuda_k3_routes_match_plain(cuda, rng, S):
+    """K3 by both its routes (K7's kernel with reset rows 0, at 1-4 tracks a
+    cluster, where S <= 768; the cluster kernel at any S) on ragged lengths
+    and tie-heavy tracks, bit-equal to dense_forward_plain; above 768
+    states k3_route takes the cluster kernel and the window route raises."""
+    A, pi = _dense_case(rng, S)
+    log_B, log_pi = prepare_log_params(A, pi)
+    lengths = np.array([96, 50, 1, 2, 77, 96, 13], np.int32)
+    log_obs = _log_obs(rng, len(lengths), 96, S)
+    t1_p, t1m1_p = TD.dense_forward_plain(torch.from_numpy(log_B), torch.from_numpy(log_pi),
+                                          log_obs, lengths)
+    runs = [("cluster", None)]
+    if S <= TD.K7_MAX_STATES:
+        runs += [("window", g) for g in (1, 2, 3, 4)] + [(None, None)]
+    else:
+        assert TD.k3_route(S) == "cluster"
+        with pytest.raises(ValueError, match="K3"):
+            TD.dense_forward(log_B, log_pi, log_obs.to(cuda), lengths, route="window")
+    for route, tracks in runs:
+        t1_k, t1m1_k = TD.dense_forward(log_B, log_pi, log_obs.to(cuda), lengths, route=route,
+                                        tracks=tracks)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(t1_k.cpu().numpy(), t1_p.numpy())
+        for n, L in enumerate(lengths):
+            np.testing.assert_array_equal(t1m1_k[n, :L].cpu().numpy(), t1m1_p[n, :L].numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [361, 722])
+def test_cuda_k3_more_tracks_than_clusters_resident(cuda, rng, S):
+    """K3's window route over more tracks than the card holds clusters at
+    once (three times as many, one track a cluster, and by the rule),
+    ragged: equal to the plain version."""
+    A, pi = _dense_case(rng, S)
+    log_B, log_pi = prepare_log_params(A, pi)
+    N = 3 * TD.window_max_clusters(S) + 1
+    lengths = rng.integers(1, 25, N).astype(np.int32)
+    log_obs = _log_obs(rng, N, 24, S)
+    t1_p, t1m1_p = TD.dense_forward_plain(torch.from_numpy(log_B), torch.from_numpy(log_pi),
+                                          log_obs, lengths)
+    for tracks in (1, None):
+        t1_k, t1m1_k = TD.dense_forward(log_B, log_pi, log_obs.to(cuda), lengths,
+                                        route="window", tracks=tracks)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(t1_k.cpu().numpy(), t1_p.numpy())
+        for n, L in enumerate(lengths):
+            np.testing.assert_array_equal(t1m1_k[n, :L].cpu().numpy(), t1m1_p[n, :L].numpy())
 
 
 @pytest.mark.gpu

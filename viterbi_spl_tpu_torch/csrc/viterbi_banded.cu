@@ -40,7 +40,26 @@
 // shared-memory load instead of three; the carry rows are padded so the
 // fully unrolled loop needs no bounds test; four independent max chains
 // shorten the loop's latency. (Unrolling the three-load loop with a masked
-// trip count is 1.8x slower on the H100; PERF.md.)
+// trip count is 1.8x slower on the H100; PERF.md.) Measured on the H100
+// (clock64 in every warp; scripts/gpu_banded_probe.py, PERF.md): a 361-state
+// frame is ~1,200 SM cycles, ~500 of them the candidate loop and the rest
+// the chain of the barrier, the two voiced-max reductions, the stores and
+// the observation refill; a 722-state frame (81 offsets, three loads a
+// candidate) ~8,600, of which the candidates ~7,100: the shared-memory port.
+// Four targets a thread (float4 rows, a quarter of the warps) takes the
+// same ~0.62 us a 361-state frame, so that frame is a latency chain.
+//
+// Where the band does not fit one thread's registers (2 d_max + 1 > 32), K1
+// runs a thread-block cluster of C blocks per track instead (C from the
+// caller, hmm/viterbi_banded.py::k1_cluster): each block owns ceil(S / C)
+// targets, one thread each, with its band column in registers (up to 84
+// offsets, so at most 384 threads a block), and values move by st.async
+// into mbarrier-counted rows with no barrier a frame; the banded matrix
+// needs only d_max values from each neighbouring block, every warp's voiced
+// maximum and the unvoiced value. At jdc's 722 states a frame takes ~1.1 us
+// (C = 2) against ~4.3 for one block. At 361 states its exchange costs more
+// than one block's barrier (0.65-0.8 us a frame against 0.6), so there K1
+// keeps one block per track.
 //
 // K2 has two routes behind one entry, chosen by the caller from the work
 // they cost (hmm/viterbi_banded.py::k2_route). A chain that takes the
@@ -94,7 +113,11 @@
 // R (R >= P) come from the caller (hmm/viterbi_banded.py::k9_layout);
 // log_prior sits in shared memory.
 
+#include <cooperative_groups.h>
+
 #include "obs_common.cuh"
+
+namespace cg = cooperative_groups;
 
 // Shared memory a block may use before the profiles move to L1.
 #define VSPL_BANDED_SMEM_BUDGET (200 * 1024)
@@ -108,7 +131,12 @@ __host__ __device__ inline int vspl_carry_stride(int S, int d_max) {
   return S + d_max + VSPL_BAND_REGS;
 }
 
+// Returned when no group of SMs can hold one cluster of K1's cluster kernel.
+#define VSPL_ERR_CLUSTER 10001
+
 extern "C" const char* vspl_error_string(int code) {
+  if (code == VSPL_ERR_CLUSTER)
+    return "no group of SMs can hold one thread-block cluster of this size";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -192,7 +220,7 @@ __global__ void __launch_bounds__(VSPL_FORWARD_THREADS) banded_forward_kernel(
   unsigned long long* full = smem_u64;                 // K9: [R]
   unsigned long long* empty = full + (kObs ? R : 0);   // K9: [R]
   float* buf = reinterpret_cast<float*>(empty + (kObs ? R : 0));  // [2][stride]
-  float* wmax = buf + 2 * stride;                     // [2][32] warp voiced maxima
+  float* wmax = buf + 2 * stride;                     // [2][32] warp maxima' keys
   float* obs_ring = wmax + 2 * VSPL_MAX_WARPS;        // [R][S] observations
   int* cls_s = reinterpret_cast<int*>(obs_ring + R * S);           // [W]
   int* idx_s = cls_s + W;                                          // K9: [n_stage]
@@ -259,8 +287,11 @@ __global__ void __launch_bounds__(VSPL_FORWARD_THREADS) banded_forward_kernel(
     buf[d_max + tid] = cur;
     out[tid] = 0.0f;
   }
-  float wv = vspl_warp_max(tid < n ? cur : -CUDART_INF_F);
-  if (lane == 0) wmax[warp] = wv;
+  // each warp's voiced maximum, kept as its order key from one warp
+  // reduction to the next (no conversion between them on the frame's chain)
+  unsigned wv =
+      __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(tid < n ? cur : -CUDART_INF_F));
+  if (lane == 0) wmax[warp] = __uint_as_float(wv);
 
   // in-band offsets whose source x = s + d is a voiced state
   const int d_lo = max(-d_max, -tid);
@@ -301,8 +332,9 @@ __global__ void __launch_bounds__(VSPL_FORWARD_THREADS) banded_forward_kernel(
     };
     const float* prev = buf + p * stride + d_max;
     // the voiced maximum of the previous row, from the warps' maxima
-    const float max_voiced =
-        vspl_warp_max(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)]);
+    const float max_voiced = vspl_key_value(__reduce_max_sync(
+        VSPL_FULL_MASK,
+        __float_as_uint(wmax[p * VSPL_MAX_WARPS + (lane < nwarps ? lane : 0)])));
     const float prev_uv = prev[n];
     float nv = -CUDART_INF_F;
     if (tid < n) {
@@ -331,8 +363,8 @@ __global__ void __launch_bounds__(VSPL_FORWARD_THREADS) banded_forward_kernel(
       buf[(1 - p) * stride + d_max + tid] = nv;
       cur = nv;
     }
-    wv = vspl_warp_max(tid < n ? nv : -CUDART_INF_F);
-    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = wv;
+    wv = __reduce_max_sync(VSPL_FULL_MASK, vspl_order_key(tid < n ? nv : -CUDART_INF_F));
+    if (lane == 0) wmax[(1 - p) * VSPL_MAX_WARPS + warp] = __uint_as_float(wv);
     p ^= 1;
     if constexpr (kObs == 0) {
       // refill the slot just used (its value is in nv) with frame t + VSPL_RING
@@ -430,6 +462,259 @@ extern "C" int vspl_banded_forward_obs(const float* logits, const int* idx,
                                                    d_max, n_classes, log_tiny, log_c_uv,
                                                    log_c_vu, log_c_uu, stream);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K1 over a thread-block cluster a track
+// ---------------------------------------------------------------------------
+
+// Band offsets a thread of the cluster kernel holds in registers: 32 (d_max
+// <= 15) or VSPL_BAND_REGS_WIDE (d_max <= 41).
+#define VSPL_BAND_REGS_WIDE 84
+// Threads of a cluster kernel's block at most (so that a thread may hold
+// 65,536 / 384 = 170 registers: the wide band takes 84).
+#define VSPL_CLUSTER_THREADS 384
+
+// A cluster of C blocks per track (C from the caller: hmm/viterbi_banded.py::
+// k1_cluster). Block `rank` owns the targets [rank * chunk, rank * chunk +
+// chunk), one thread each, and keeps its targets' band columns in registers
+// (kBand offsets from -d_max). Its carry row holds its own targets and the
+// d_max sources on each side that its band reads; every value of the row
+// arrives by st.async, which completes its bytes on the block's mbarrier for
+// the row (two rows, two mbarriers, as K7 in viterbi_window.cu): a thread
+// sends its new value to its own block, and to the neighbouring block whose
+// band reaches it (the banded matrix needs no other value across blocks);
+// each warp's voiced maximum goes to every block (lanes 0..C-1), and the
+// unvoiced state's value too. A block waits until the row's bytes have landed
+// and runs no barrier a frame. A block can only receive row t + 1 after every
+// block sent its warps' maxima of row t, which each warp does after it read
+// row t - 1, so two row buffers need no "consumed" barrier.
+template <int kBand>
+__global__ void __launch_bounds__(VSPL_CLUSTER_THREADS, 1) banded_cluster_kernel(
+    const float* __restrict__ log_obs,   // [N, T, S]
+    const float* __restrict__ bv,        // [n_classes, S] source profiles
+    const int* __restrict__ cls,         // [2 d_max + 1] class of offset d
+    const float* __restrict__ log_pi,    // [S]
+    const int* __restrict__ lengths,     // [N], 1 <= len <= T
+    float* __restrict__ t1m1,            // [N, T, S]: row t = T1[t-1], row 0 = 0
+    float* __restrict__ t1_last,         // [N, S]
+    int T, int S, int d_max, int chunk, float log_tiny, float log_c_uv, float log_c_vu,
+    float log_c_uu) {
+  extern __shared__ __align__(16) unsigned long long smem_u64[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int track = blockIdx.x / C;
+  const int n = S - 1;  // the unvoiced state
+  const int wpb = static_cast<int>(blockDim.x >> 5);
+  // one carry row: source x at x - lo + d_max; d_max slots before the
+  // block's targets, kBand after the last thread's, so every unrolled read
+  // stays in the row
+  const int stride = static_cast<int>(blockDim.x) + d_max + kBand;
+  unsigned long long* bar = smem_u64;                     // [2]
+  float* rows = reinterpret_cast<float*>(smem_u64 + 2);  // [2][stride]
+  float* wmax = rows + 2 * stride;                       // [2][32] warp voiced maxima
+  float* uvs = wmax + 2 * VSPL_MAX_WARPS;                // [2] the unvoiced value
+  float* ring = uvs + 2;                                 // [VSPL_RING][blockDim] observations
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = rank * chunk;
+  const int hi = min(lo + chunk, S);
+  const int s = lo + tid;
+  const bool real = tid < chunk && s < S;
+  // the row's bytes a block receives: its own targets, the halos, every
+  // warp's maximum and the unvoiced value
+  const int halo_l = rank > 0 ? d_max : 0;
+  const int halo_r = rank < C - 1 ? min(d_max, min(S, hi + chunk) - hi) : 0;
+  const unsigned row_bytes = 4u * static_cast<unsigned>(hi - lo + halo_l + halo_r + C * wpb + 1);
+  const int len = lengths[track];
+
+  if (tid == 0) {
+    vspl_mbar_init(vspl_smem_addr(&bar[0]), 1);
+    vspl_mbar_init(vspl_smem_addr(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < 2 * stride; i += blockDim.x) rows[i] = 0.0f;
+  // band[i] = logB[s, s + i - d_max] for the voiced sources of this voiced
+  // target, -inf elsewhere (such a candidate never wins: the seed is finite)
+  float band[kBand];
+#pragma unroll
+  for (int i = 0; i < kBand; ++i) {
+    const int x = s + i - d_max;
+    band[i] = (i <= 2 * d_max && real && s < n && x >= 0 && x < n)
+                  ? bv[cls[i] * S + x] : -CUDART_INF_F;
+  }
+  // where this thread's value goes, row buffer 0 and 1: its own block, the
+  // block before (its band reaches s when s < lo + d_max) and the one after
+  const bool to_l = real && rank > 0 && s < lo + d_max;
+  const bool to_r = real && rank < C - 1 && s >= hi - d_max;
+  const int self_i = tid + d_max;
+  // (named registers: an array indexed by the row's parity would live in
+  // local memory)
+  unsigned own0 = 0u, own1 = 0u, ownb0 = 0u, ownb1 = 0u, lft0 = 0u, lft1 = 0u, lftb0 = 0u,
+           lftb1 = 0u, rgt0 = 0u, rgt1 = 0u, rgtb0 = 0u, rgtb1 = 0u, wm0 = 0u, wm1 = 0u,
+           wmb0 = 0u, wmb1 = 0u;
+  if (real) {
+    own0 = vspl_map_rank(rows + self_i, rank);
+    own1 = vspl_map_rank(rows + stride + self_i, rank);
+    ownb0 = vspl_map_rank(&bar[0], rank);
+    ownb1 = vspl_map_rank(&bar[1], rank);
+  }
+  if (to_l) {
+    lft0 = vspl_map_rank(rows + self_i + chunk, rank - 1);
+    lft1 = vspl_map_rank(rows + stride + self_i + chunk, rank - 1);
+    lftb0 = vspl_map_rank(&bar[0], rank - 1);
+    lftb1 = vspl_map_rank(&bar[1], rank - 1);
+  }
+  if (to_r) {
+    rgt0 = vspl_map_rank(rows + self_i - chunk, rank + 1);
+    rgt1 = vspl_map_rank(rows + stride + self_i - chunk, rank + 1);
+    rgtb0 = vspl_map_rank(&bar[0], rank + 1);
+    rgtb1 = vspl_map_rank(&bar[1], rank + 1);
+  }
+  if (lane < C) {  // this warp's maximum, to block `lane`
+    wm0 = vspl_map_rank(wmax + rank * wpb + warp, lane);
+    wm1 = vspl_map_rank(wmax + VSPL_MAX_WARPS + rank * wpb + warp, lane);
+    wmb0 = vspl_map_rank(&bar[0], lane);
+    wmb1 = vspl_map_rank(&bar[1], lane);
+  }
+  const size_t base = static_cast<size_t>(track) * T * S;
+  const float* obs = log_obs + base;
+  float* out = t1m1 + base;
+  // each thread's observations stream through a VSPL_RING-frame ring
+  for (int f = 1; f <= VSPL_RING; ++f)
+    vspl_stage_one(ring + (f % VSPL_RING) * blockDim.x + tid,
+                   obs + static_cast<size_t>(min(f, len - 1)) * S + min(s, n), real && f < len);
+  cluster.sync();  // every block's barriers and rows are in place
+  if (tid == 0) {
+    vspl_mbar_expect(vspl_smem_addr(&bar[0]), row_bytes);
+    if (len > 1) vspl_mbar_expect(vspl_smem_addr(&bar[1]), row_bytes);
+  }
+
+  // row q's value v of this thread (and the warp's maximum) to every block
+  // that reads it
+  auto send = [&](int q, float v) {
+    if (real) {
+      vspl_store_remote(q ? own1 : own0, v, q ? ownb1 : ownb0);
+      if (to_l) vspl_store_remote(q ? lft1 : lft0, v, q ? lftb1 : lftb0);
+      if (to_r) vspl_store_remote(q ? rgt1 : rgt0, v, q ? rgtb1 : rgtb0);
+      if (s == n)
+        for (int r = 0; r < C; ++r)
+          vspl_store_remote(vspl_map_rank(uvs + q, r), v, vspl_map_rank(&bar[q], r));
+    }
+    const float w = vspl_warp_max(real && s < n ? v : -CUDART_INF_F);
+    if (lane < C) vspl_store_remote(q ? wm1 : wm0, w, q ? wmb1 : wmb0);
+  };
+
+  float cur = -CUDART_INF_F;
+  if (real) {
+    cur = log_pi[s] + obs[s];
+    out[s] = 0.0f;
+  }
+  send(0, cur);
+  const int n_wmax = C * wpb;
+  for (int t = 1; t < len; ++t) {
+    const int r = t - 1, b = r & 1;  // row t - 1 is in buffer b
+    const int slot = (t % VSPL_RING) * blockDim.x + tid;
+    vspl_wait_oldest_row();  // this thread's observation of frame t
+    const float obs_t = real ? ring[slot] : 0.0f;
+    vspl_mbar_wait(vspl_smem_addr(&bar[b]), (r >> 1) & 1);
+    if (tid == 0 && r + 2 < len) vspl_mbar_expect(vspl_smem_addr(&bar[b]), row_bytes);
+    const float* prev = rows + b * stride;
+    const float max_voiced = vspl_warp_max(wmax[b * VSPL_MAX_WARPS + (lane < n_wmax ? lane : 0)]);
+    const float prev_uv = uvs[b];
+    // the in-band candidates (pv[i] = T1[s + i - d_max]), then the seed
+    const float* pv = prev + tid;
+    float a[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < kBand; ++i) a[i % 4] = fmaxf(a[i % 4], pv[i] + band[i]);
+    float nv;
+    if (s < n)
+      nv = fmaxf(fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3])),
+                 fmaxf(max_voiced + log_tiny, prev_uv + log_c_uv)) + obs_t;
+    else
+      nv = fmaxf(max_voiced + log_c_vu, prev_uv + log_c_uu) + obs_t;
+    if (real) out[static_cast<size_t>(t) * S + s] = cur;
+    cur = nv;
+    send(1 - b, nv);
+    // refill the slot just read with frame t + VSPL_RING
+    const int f = t + VSPL_RING;
+    vspl_stage_one(ring + slot, obs + static_cast<size_t>(min(f, len - 1)) * S + min(s, n),
+                   real && f < len);
+  }
+  if (real) t1_last[static_cast<size_t>(track) * S + s] = cur;
+  // every store into this block has landed before it may exit
+  if (tid == 0) vspl_mbar_wait(vspl_smem_addr(&bar[(len - 1) & 1]), ((len - 1) >> 1) & 1);
+  vspl_wait_all_rows();
+  cluster.sync();
+}
+
+template <int kBand>
+static cudaError_t banded_cluster_config(int S, int d_max, int C, cudaLaunchConfig_t* cfg,
+                                         cudaLaunchAttribute* attr) {
+  const int chunk = (S + C - 1) / C;
+  const int threads = (chunk + 31) / 32 * 32;
+  // every block owns a target, halos come from neighbours only, and the
+  // warps' maxima fit one warp reduction
+  if (C < 1 || C > 8 || threads > VSPL_CLUSTER_THREADS || (C - 1) * chunk >= S ||
+      (C > 1 && chunk < d_max) || C * (threads / 32) > VSPL_MAX_WARPS || 2 * d_max + 1 > kBand)
+    return cudaErrorInvalidValue;
+  const size_t smem = 2 * sizeof(unsigned long long) +
+                      (2 * (threads + d_max + kBand) + 2 * VSPL_MAX_WARPS + 2 +
+                       static_cast<size_t>(VSPL_RING) * threads) * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(banded_cluster_kernel<kBand>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int kBand>
+static int launch_banded_cluster(const float* log_obs, const float* bv, const int* cls,
+                                 const float* log_pi, const int* lengths, float* t1m1,
+                                 float* t1_last, int N, int T, int S, int d_max, int C,
+                                 float log_tiny, float log_c_uv, float log_c_vu,
+                                 float log_c_uu, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = banded_cluster_config<kBand>(S, d_max, C, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3(N * C);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, banded_cluster_kernel<kBand>, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return VSPL_ERR_CLUSTER;
+  e = cudaLaunchKernelEx(&cfg, banded_cluster_kernel<kBand>, log_obs, bv, cls, log_pi, lengths,
+                         t1m1, t1_last, T, S, d_max, (S + C - 1) / C, log_tiny, log_c_uv,
+                         log_c_vu, log_c_uu);
+  if (e != cudaSuccess) return e;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 with `cluster` blocks per track (1..8): each block owns ceil(S /
+// cluster) targets; 2 d_max + 1 <= VSPL_BAND_REGS_WIDE.
+extern "C" int vspl_banded_forward_cluster(const float* log_obs, const float* bv,
+                                           const int* cls, const float* log_pi,
+                                           const int* lengths, float* t1m1, float* t1_last,
+                                           int N, int T, int S, int d_max, int cluster,
+                                           float log_tiny, float log_c_uv, float log_c_vu,
+                                           float log_c_uu, void* stream) {
+  if (N <= 0 || T <= 0 || S < 3) return cudaErrorInvalidValue;
+  if (2 * d_max + 1 <= VSPL_BAND_REGS)
+    return launch_banded_cluster<VSPL_BAND_REGS>(log_obs, bv, cls, log_pi, lengths, t1m1,
+                                                 t1_last, N, T, S, d_max, cluster, log_tiny,
+                                                 log_c_uv, log_c_vu, log_c_uu, stream);
+  return launch_banded_cluster<VSPL_BAND_REGS_WIDE>(log_obs, bv, cls, log_pi, lengths, t1m1,
+                                                    t1_last, N, T, S, d_max, cluster, log_tiny,
+                                                    log_c_uv, log_c_vu, log_c_uu, stream);
 }
 
 // ---------------------------------------------------------------------------

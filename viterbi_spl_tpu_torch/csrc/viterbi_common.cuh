@@ -152,6 +152,21 @@ __device__ __forceinline__ void vspl_mbar_wait(unsigned bar, unsigned parity) {
   }
 }
 
+// The address of the same shared-memory location in cluster block `rank`.
+__device__ __forceinline__ unsigned vspl_map_rank(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(vspl_smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// Stores v at `dst` in a cluster block's shared memory and completes 4 bytes
+// of the transaction count of that block's mbarrier `bar`.
+__device__ __forceinline__ void vspl_store_remote(unsigned dst, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
 // One bulk copy (cp.async.bulk) of `bytes` (a multiple of 16, both addresses
 // 16-byte aligned) from device memory into this block's shared memory,
 // completing its bytes on the mbarrier `bar`.

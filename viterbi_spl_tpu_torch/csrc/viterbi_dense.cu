@@ -20,15 +20,25 @@
 // form) against 8 S bytes of observations and rows, so operations bound it;
 // the transition table (S^2 floats: 0.5 MB at 361 states, 2.1 MB at 722) is
 // too large for shared memory but stays in the 50 MB L2, and a frame
-// depends on the whole previous row. One block per track would stream the
-// whole table from L2 into one SM each frame, bound by that SM's share of
-// L2 bandwidth. So a thread-block cluster of VSPL_DENSE_CLUSTER blocks
-// shares a track: each block streams only its
-// targets' columns of the transposed table logA[s'][s] = logB[s][s'] (the
-// threads of a warp read consecutive addresses), split over source ranges
-// with four independent max chains per thread, reduces the ranges in shared
-// memory, and stores its new values into every block's copy of the carry
-// row through distributed shared memory; one cluster barrier per frame.
+// depends on the whole previous row, so a track is a chain of frames.
+//
+// K3 is the forward of K7 (csrc/viterbi_window.cu) with every reset row 0,
+// and up to 768 states it runs K7's kernel (vspl_dense_forward_window): the
+// table slice held in registers for the whole track, rows signalled by
+// arrival (st.async into mbarriers), no barrier a frame, and G = 1-4 tracks
+// a cluster so that one slice serves G carry rows a frame when N tracks
+// would not fit the card's clusters in one wave (the caller's choice,
+// hmm/viterbi_dense.py::k3_tracks_per_cluster). Measured on the H100
+// (scripts/gpu_dense_probe.py, PERF.md): 13.1 ms at imm's 722 states, N=16,
+// T=4,096, against 44.3 for the kernel below, which streamed its columns
+// from L2 every frame. Above 768 states K3 keeps that kernel: a
+// thread-block cluster of VSPL_DENSE_CLUSTER blocks shares a track; each
+// block streams only its targets' columns of the transposed table
+// logA[s'][s] = logB[s][s'] (the threads of a warp read consecutive
+// addresses), split over source ranges with four independent max chains
+// per thread, reduces the ranges in shared memory, and stores its new
+// values into every block's copy of the carry row through distributed
+// shared memory; one cluster barrier per frame.
 //
 // K4 is a chain of T dependent argmax steps per track; each reads one
 // t1m1 row (staged VSPL_RING steps ahead in a shared-memory ring, as in the

@@ -51,7 +51,12 @@
 //     exit, so that no block leaves while its shared memory can still be
 //     written;
 //   * observations through a 16-frame cp.async ring; only adds and maxima
-//     (no FMA contraction, no fast math): bit-equal to the plain version.
+//     (no FMA contraction, no fast math): bit-equal to the plain version;
+//   * the same kernel is K3 (csrc/viterbi_dense.cu), every reset row 0, with
+//     kG = 1-4 windows a cluster: the slice in registers serves each of
+//     their rows a frame (a frame of G rows costs ~1 + 0.7 (G - 1) frames of
+//     one), which fills the card where one window a cluster would need more
+//     waves (the card holds 15 8-block and 7 16-block clusters at once).
 //
 // K8 replaces viterbi_pallas.py::_backtrace_kernel (pallas_call at :303): from
 // start_states[n] at frame len - 1, s_{t-1} = first-argmax_x (t1m1[t][x] +
@@ -96,49 +101,39 @@ extern "C" const char* vspl_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The address of the same shared-memory location in cluster block `rank`.
-__device__ __forceinline__ unsigned vspl_map_rank(const void* p, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out) : "r"(vspl_smem_addr(p)), "r"(rank));
-  return out;
-}
-
-// Stores v at `dst` in a cluster block's shared memory and completes 4 bytes
-// of the transaction count of that block's mbarrier `bar`.
-__device__ __forceinline__ void vspl_store_remote(unsigned dst, float v, unsigned bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
-               ::"r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
-}
-
 // ---------------------------------------------------------------------------
 // K7
 // ---------------------------------------------------------------------------
 
-// One cluster per window. Block `rank` owns the targets [rank * chunk,
+// One cluster per kG windows (windows cluster * kG + i, i < kG, those below
+// N): the block's slice of the table, held in registers, serves each of
+// their carry rows a frame. Block `rank` owns the targets [rank * chunk,
 // (rank + 1) * chunk); warp w the local targets 2w and 2w + 1, lane l the
 // target 2w + l / 16 and the float4 source slots (l % 16) + 16 k, k < kVec
-// (S <= 64 kVec). Shared memory: two mbarriers, the two carry rows [2][P]
-// (P = 64 kVec, padding at -inf) and the observation ring [VSPL_RING][2 warps].
-template <int kVec>
+// (S <= 64 kVec). Shared memory: two mbarriers, the carry rows [2][kG][P]
+// (P = 64 kVec, padding at -inf) and the observation ring [VSPL_RING][kG][2
+// warps]. A row's mbarrier counts the bytes of the windows still running
+// at that row (their lengths may differ). reset_rows null: every reset row
+// is 0 (K3).
+template <int kVec, int kG>
 __global__ void __launch_bounds__(32 * VSPL_WIN_CHUNK / 2, 1) window_forward_kernel(
     const float* __restrict__ log_obs,   // [N, W, S]
     const float* __restrict__ logB,      // [S, S]
     const float* __restrict__ log_pi,    // [S]
     const int* __restrict__ lengths,     // [N], 1 <= len <= W
-    const int* __restrict__ reset_rows,  // [N], -1 <= row < len
+    const int* __restrict__ reset_rows,  // [N], -1 <= row < len; or null
     float* __restrict__ t1m1,            // [N, W, S]
     float* __restrict__ t1_last,         // [N, S]
-    int W, int S, int chunk) {
+    int N, int W, int S, int chunk) {
   constexpr int P = 64 * kVec;
   extern __shared__ __align__(16) unsigned long long smem_u64[];
   unsigned long long* bar = smem_u64;                          // [2]
-  float* rows = reinterpret_cast<float*>(smem_u64 + 2);         // [2][P]
-  float* ring = rows + 2 * P;                                   // [VSPL_RING][2 warps]
+  float* rows = reinterpret_cast<float*>(smem_u64 + 2);         // [2][kG][P]
+  float* ring = rows + 2 * kG * P;                              // [VSPL_RING][kG][2 warps]
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int win = blockIdx.x / C;
+  const int win0 = blockIdx.x / C * kG;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane & (VSPL_WIN_LANES - 1);
   const int j = 2 * warp + (lane >> 4);  // local target
@@ -148,19 +143,32 @@ __global__ void __launch_bounds__(32 * VSPL_WIN_CHUNK / 2, 1) window_forward_ker
   const bool sender = real && g < C;                 // sends target s to block g
   const bool keeper = real && g == 0;                // stages obs, writes t1m1 and t1_last
   const int ring_w = blockDim.x / 16;                // ring row: one slot per target
-  const int len = lengths[win];
-  const int reset = reset_rows[win];
-  const size_t base = static_cast<size_t>(win) * W * S;
-  const float* obs = log_obs + base;
+  int len[kG], reset[kG];
+  int max_len = 0;
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    const bool here = win0 + i < N;
+    len[i] = here ? lengths[win0 + i] : 0;
+    reset[i] = here && reset_rows ? reset_rows[win0 + i] : 0;
+    max_len = max(max_len, len[i]);
+  }
+  // row r's bytes: S values of each window still running at r
+  auto row_bytes = [&](int r) {
+    unsigned b = 0;
+#pragma unroll
+    for (int i = 0; i < kG; ++i) b += r < len[i] ? static_cast<unsigned>(S) * 4u : 0u;
+    return b;
+  };
+  const size_t base = static_cast<size_t>(win0) * W * S;
+  const float* obs = log_obs + base;  // window win0 + i at obs + i W S
   float* out = t1m1 + base;
-  const unsigned row_bytes = static_cast<unsigned>(S) * 4u;
 
   if (threadIdx.x == 0) {
     vspl_mbar_init(vspl_smem_addr(&bar[0]), 1);
     vspl_mbar_init(vspl_smem_addr(&bar[1]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = threadIdx.x; i < 2 * P; i += blockDim.x) rows[i] = -CUDART_INF_F;
+  for (int i = threadIdx.x; i < 2 * kG * P; i += blockDim.x) rows[i] = -CUDART_INF_F;
   // the table slice, once per window: padding sources add 0 to a -inf row
   float4 tab[kVec];
   const float* brow = logB + static_cast<size_t>(min(s, S - 1)) * S;
@@ -172,70 +180,84 @@ __global__ void __launch_bounds__(32 * VSPL_WIN_CHUNK / 2, 1) window_forward_ker
     tab[k].z = x + 2 < S ? __ldg(brow + x + 2) : 0.0f;
     tab[k].w = x + 3 < S ? __ldg(brow + x + 3) : 0.0f;
   }
-  // where this lane's stores go: row buffer 0 or 1 of block g, and its
-  // mbarrier (named registers: an array indexed by the frame would live in
-  // local memory)
+  // where this lane's stores go: window 0's row buffer 0 or 1 of block g,
+  // and its mbarrier (named registers: an array indexed by the frame would
+  // live in local memory); window i's row is i P floats further
   unsigned row0 = 0u, row1 = 0u, bar0 = 0u, bar1 = 0u;
   if (sender) {
     row0 = vspl_map_rank(rows + s, g);
-    row1 = vspl_map_rank(rows + P + s, g);
+    row1 = vspl_map_rank(rows + kG * P + s, g);
     bar0 = vspl_map_rank(&bar[0], g);
     bar1 = vspl_map_rank(&bar[1], g);
   }
   const float lpi = real ? log_pi[s] : 0.0f;
-  for (int i = 0; i < VSPL_RING; ++i) {
-    const int f = 1 + i;
-    if (keeper) vspl_stage_one(ring + (f % VSPL_RING) * ring_w + j,
-                               obs + static_cast<size_t>(f) * S + s, f < len);
-    else vspl_commit_copies();
-  }
+  // the keeper's observations of frame f, one copy group for every window
+  auto stage = [&](int f) {
+    if (keeper)
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        if (f < len[i])
+          vspl_copy_async(ring + ((f % VSPL_RING) * kG + i) * ring_w + j,
+                          obs + (static_cast<size_t>(i) * W + f) * S + s);
+    vspl_commit_copies();
+  };
+  for (int f = 1; f <= VSPL_RING; ++f) stage(f);
   cluster.sync();  // every block's barriers and padding are in place
   if (threadIdx.x == 0) {
-    vspl_mbar_expect(vspl_smem_addr(&bar[0]), row_bytes);
-    if (len > 1) vspl_mbar_expect(vspl_smem_addr(&bar[1]), row_bytes);
+    vspl_mbar_expect(vspl_smem_addr(&bar[0]), row_bytes(0));
+    if (max_len > 1) vspl_mbar_expect(vspl_smem_addr(&bar[1]), row_bytes(1));
   }
-  // frame 0: K7 with reset row 0, log_pi + obs; otherwise a cold start
-  float cur = 0.0f;
-  if (real) cur = reset == 0 ? lpi + obs[s] : obs[s];
-  if (sender) vspl_store_remote(row0, cur, bar0);
-  if (keeper) out[s] = 0.0f;
+  // frame 0: with reset row 0, log_pi + obs; otherwise a cold start
+  float cur[kG];
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    const float* ob = obs + static_cast<size_t>(i) * W * S;
+    cur[i] = real && len[i] > 0 ? (reset[i] == 0 ? lpi + ob[s] : ob[s]) : 0.0f;
+    if (sender && len[i] > 0) vspl_store_remote(row0 + 4u * i * P, cur[i], bar0);
+    if (keeper && len[i] > 0) out[static_cast<size_t>(i) * W * S + s] = 0.0f;
+  }
 
   if (in_loop) {
-    for (int t = 1; t < len; ++t) {
+    for (int t = 1; t < max_len; ++t) {
       const int r = t - 1, b = r & 1;  // row t - 1 is in buffer b
-      vspl_wait_oldest_row();          // frame t's observation (the keeper's copy)
+      vspl_wait_oldest_row();          // frame t's observations (the keeper's copies)
       __syncwarp();
-      const float obs_t = ring[(t % VSPL_RING) * ring_w + j];
       vspl_mbar_wait(vspl_smem_addr(&bar[b]), (r >> 1) & 1);
-      if (threadIdx.x == 0 && r + 2 < len) vspl_mbar_expect(vspl_smem_addr(&bar[b]), row_bytes);
-      const float4* prev = reinterpret_cast<const float4*>(rows + b * P);
-      float a0 = -CUDART_INF_F, a1 = -CUDART_INF_F, a2 = -CUDART_INF_F, a3 = -CUDART_INF_F;
+      if (threadIdx.x == 0 && r + 2 < max_len)
+        vspl_mbar_expect(vspl_smem_addr(&bar[b]), row_bytes(r + 2));
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const float4 v = prev[g + VSPL_WIN_LANES * k];
-        a0 = fmaxf(a0, v.x + tab[k].x);
-        a1 = fmaxf(a1, v.y + tab[k].y);
-        a2 = fmaxf(a2, v.z + tab[k].z);
-        a3 = fmaxf(a3, v.w + tab[k].w);
+      for (int i = 0; i < kG; ++i) {
+        if (kG > 1 && t >= len[i]) continue;  // the same for every thread of the cluster
+        const float obs_t = ring[((t % VSPL_RING) * kG + i) * ring_w + j];
+        const float4* prev = reinterpret_cast<const float4*>(rows + (b * kG + i) * P);
+        float a0 = -CUDART_INF_F, a1 = -CUDART_INF_F, a2 = -CUDART_INF_F, a3 = -CUDART_INF_F;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float4 v = prev[g + VSPL_WIN_LANES * k];
+          a0 = fmaxf(a0, v.x + tab[k].x);
+          a1 = fmaxf(a1, v.y + tab[k].y);
+          a2 = fmaxf(a2, v.z + tab[k].z);
+          a3 = fmaxf(a3, v.w + tab[k].w);
+        }
+        const unsigned key = vspl_order_key(fmaxf(fmaxf(a0, a1), fmaxf(a2, a3)));
+        const unsigned k0 = __reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? key : 0u);
+        const unsigned k1 = __reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? 0u : key);
+        const float m = vspl_key_value(lane < 16 ? k0 : k1);
+        const float nv = t == reset[i] ? lpi + obs_t : m + obs_t;
+        if (sender) vspl_store_remote((b ? row0 : row1) + 4u * i * P, nv, b ? bar0 : bar1);
+        if (keeper) out[(static_cast<size_t>(i) * W + t) * S + s] = cur[i];
+        cur[i] = nv;
       }
-      const unsigned key = vspl_order_key(fmaxf(fmaxf(a0, a1), fmaxf(a2, a3)));
-      const unsigned k0 = __reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? key : 0u);
-      const unsigned k1 = __reduce_max_sync(VSPL_FULL_MASK, lane < 16 ? 0u : key);
-      const float m = vspl_key_value(lane < 16 ? k0 : k1);
-      const float nv = t == reset ? lpi + obs_t : m + obs_t;
-      if (sender) vspl_store_remote(b ? row0 : row1, nv, b ? bar0 : bar1);
-      if (keeper) out[static_cast<size_t>(t) * S + s] = cur;
-      cur = nv;
-      // refill the ring slot just read with frame t + VSPL_RING
-      const int f = t + VSPL_RING;
-      if (keeper) vspl_stage_one(ring + (f % VSPL_RING) * ring_w + j,
-                                 obs + static_cast<size_t>(f) * S + s, f < len);
-      else vspl_commit_copies();
+      // refill the ring slots just read with frame t + VSPL_RING
+      stage(t + VSPL_RING);
     }
   }
-  if (keeper) t1_last[static_cast<size_t>(win) * S + s] = cur;
+#pragma unroll
+  for (int i = 0; i < kG; ++i)
+    if (keeper && len[i] > 0) t1_last[static_cast<size_t>(win0 + i) * S + s] = cur[i];
   // every store into this block has landed before it may exit
-  if (threadIdx.x == 0) vspl_mbar_wait(vspl_smem_addr(&bar[(len - 1) & 1]), ((len - 1) >> 1) & 1);
+  if (threadIdx.x == 0)
+    vspl_mbar_wait(vspl_smem_addr(&bar[(max_len - 1) & 1]), ((max_len - 1) >> 1) & 1);
   vspl_wait_all_rows();
   cluster.sync();
 }
@@ -254,43 +276,68 @@ extern "C" int vspl_window_cluster_size(int S) {
   return (S + chunk - 1) / chunk;
 }
 
-template <int kVec>
-static int launch_window_forward(const float* log_obs, const float* logB,
-                                 const float* log_pi, const int* lengths,
-                                 const int* reset_rows, float* t1m1, float* t1_last,
-                                 int N, int W, int S, cudaStream_t stream) {
+// K7's launch config at S states with kG windows a cluster (grid unset).
+template <int kVec, int kG>
+static cudaError_t window_forward_config(int S, cudaLaunchConfig_t* cfg,
+                                         cudaLaunchAttribute* attr) {
   const int chunk = window_chunk(S);
   const int C = vspl_window_cluster_size(S);
   const int warps = (chunk + 1) / 2;
   const size_t smem = 2 * sizeof(unsigned long long) +
-                      (2 * 64 * kVec + VSPL_RING * 2 * warps) * sizeof(float);
-  auto kernel = window_forward_kernel<kVec>;
+                      (2 * kG * 64 * kVec + VSPL_RING * kG * 2 * warps) * sizeof(float);
+  auto kernel = window_forward_kernel<kVec, kG>;
   cudaError_t e = cudaSuccess;
   if (C > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess && smem > 48 * 1024)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  cfg->blockDim = dim3(32 * warps);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int kVec, int kG>
+static int launch_window_forward(const float* log_obs, const float* logB,
+                                 const float* log_pi, const int* lengths,
+                                 const int* reset_rows, float* t1m1, float* t1_last,
+                                 int N, int W, int S, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N * C);
-  cfg.blockDim = dim3(32 * warps);
-  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = window_forward_config<kVec, kG>(S, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3((N + kG - 1) / kG * vspl_window_cluster_size(S));
   cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, window_forward_kernel<kVec, kG>, &cfg);
   if (e != cudaSuccess) return e;
   if (clusters < 1) return VSPL_ERR_CLUSTER;
-  e = cudaLaunchKernelEx(&cfg, kernel, log_obs, logB, log_pi, lengths, reset_rows, t1m1,
-                         t1_last, W, S, chunk);
+  e = cudaLaunchKernelEx(&cfg, window_forward_kernel<kVec, kG>, log_obs, logB, log_pi, lengths,
+                         reset_rows, t1m1, t1_last, N, W, S, window_chunk(S));
   if (e != cudaSuccess) return e;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel for S states (S <= 768) and kG windows a cluster.
+template <int kG>
+static int launch_window_forward_g(const float* log_obs, const float* logB,
+                                   const float* log_pi, const int* lengths,
+                                   const int* reset_rows, float* t1m1, float* t1_last, int N,
+                                   int W, int S, cudaStream_t st) {
+  if (S <= 64 * 2)
+    return launch_window_forward<2, kG>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                                        t1_last, N, W, S, st);
+  if (S <= 64 * 6)
+    return launch_window_forward<6, kG>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                                        t1_last, N, W, S, st);
+  return launch_window_forward<12, kG>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
+                                       t1_last, N, W, S, st);
 }
 
 // K7: N windows of W rows, each with its length and reset row; S <= 768.
@@ -300,16 +347,51 @@ extern "C" int vspl_window_forward(const float* log_obs, const float* logB,
                                    const int* reset_rows, float* t1m1,
                                    float* t1_last, int N, int W, int S,
                                    void* stream) {
-  if (N <= 0 || W <= 0 || S <= 0 || S > 64 * 12) return cudaErrorInvalidValue;
+  if (N <= 0 || W <= 0 || S <= 0 || S > 64 * 12 || reset_rows == nullptr)
+    return cudaErrorInvalidValue;
+  return launch_window_forward_g<1>(log_obs, logB, log_pi, lengths, reset_rows, t1m1, t1_last,
+                                    N, W, S, static_cast<cudaStream_t>(stream));
+}
+
+// K3 on K7's kernel: N tracks of up to T frames from log_pi (every reset row
+// 0), `tracks` (1..4) of them a cluster; S <= 768.
+extern "C" int vspl_dense_forward_window(const float* log_obs, const float* logB,
+                                         const float* log_pi, const int* lengths,
+                                         float* t1m1, float* t1_last, int N, int T, int S,
+                                         int tracks, void* stream) {
+  if (N <= 0 || T <= 0 || S <= 0 || S > 64 * 12) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S <= 64 * 2)
-    return launch_window_forward<2>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
-                                    t1_last, N, W, S, st);
-  if (S <= 64 * 6)
-    return launch_window_forward<6>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
-                                    t1_last, N, W, S, st);
-  return launch_window_forward<12>(log_obs, logB, log_pi, lengths, reset_rows, t1m1,
-                                   t1_last, N, W, S, st);
+  switch (tracks) {
+    case 1: return launch_window_forward_g<1>(log_obs, logB, log_pi, lengths, nullptr, t1m1,
+                                              t1_last, N, T, S, st);
+    case 2: return launch_window_forward_g<2>(log_obs, logB, log_pi, lengths, nullptr, t1m1,
+                                              t1_last, N, T, S, st);
+    case 3: return launch_window_forward_g<3>(log_obs, logB, log_pi, lengths, nullptr, t1m1,
+                                              t1_last, N, T, S, st);
+    case 4: return launch_window_forward_g<4>(log_obs, logB, log_pi, lengths, nullptr, t1m1,
+                                              t1_last, N, T, S, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int kVec>
+static int window_max_clusters(int S, int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  const cudaError_t e = window_forward_config<kVec, 1>(S, &cfg, attr);
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3(vspl_window_cluster_size(S) * 1024);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, window_forward_kernel<kVec, 1>, &cfg));
+}
+
+// How many of K7's clusters (one window a cluster) the card holds at once at
+// S states, into *out (0 where no group of SMs holds one).
+extern "C" int vspl_window_max_clusters(int S, int* out) {
+  if (S <= 0 || S > 64 * 12) return cudaErrorInvalidValue;
+  if (S <= 64 * 2) return window_max_clusters<2>(S, out);
+  if (S <= 64 * 6) return window_max_clusters<6>(S, out);
+  return window_max_clusters<12>(S, out);
 }
 
 // ---------------------------------------------------------------------------

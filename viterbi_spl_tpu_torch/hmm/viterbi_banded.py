@@ -4,7 +4,8 @@ in NumPy, and kernels K1 (forward), K2 (backtrace: a backpointer pass, then
 a chase) and K9 (the forward with the observation model computed inside it,
 from raw logits) — CUDA C++ in csrc/viterbi_banded.cu, each with its plain
 PyTorch version here (banded_backpointers_plain is the plain version of
-K2's pass).
+K2's pass). K1 runs one block per track, or a thread-block cluster per
+track where the band does not fit one thread's registers (k1_cluster).
 
 Every shaped melody transition matrix (SURVEY.md §2.4) has the structure
 
@@ -329,6 +330,8 @@ _SIGNATURES = {
                               _F, _F, _F, _F, _P],
     "vspl_banded_forward_obs": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P,
                                 _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "vspl_banded_forward_cluster": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _F, _F, _F, _F, _P],
 }
 
 
@@ -400,10 +403,55 @@ def k9_layout(S: int, model: int) -> tuple[int, int]:
     return producers, max(producers, 32 if S <= 384 else 16)
 
 
-def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths):
+# K1's cluster kernel (csrc/viterbi_banded.cu, banded_cluster_kernel): at
+# most 384 threads a block, 8 blocks a cluster, 32 warps a cluster, a band
+# of 2 d_max + 1 <= 84 offsets in registers. Its st.async exchange costs more
+# a frame than one block's barrier (0.68-0.82 us a frame at 361 states
+# against 0.61-0.64 for one block per track, at 8-256 tracks), so it is
+# taken only where one block per track cannot hold the band in registers
+# (2 d_max + 1 > 32): there the one-block kernel reads three values a
+# candidate (4.2-4.3 us a frame at jdc's 722 states, d_max 40, against
+# 0.83-1.14 for clusters of 2-8 blocks while N C <= the SMs).
+# scripts/gpu_banded_probe.py --parts k1layouts; PERF.md.
+K1_REG_BAND = 32
+K1_WIDE_BAND = 84
+K1_CLUSTER_THREADS = 384
+
+
+def k1_cluster_fits(S: int, d_max: int, C: int) -> bool:
+    """Whether the cluster kernel takes C blocks a track at (S, d_max): each
+    block owns ceil(S / C) targets, one thread each (at most 384 threads,
+    32 warps over the cluster), every block owns a target, and a halo comes
+    from the neighbouring blocks only."""
+    chunk = -(-S // C)
+    threads = -(-chunk // 32) * 32
+    return (1 <= C <= 8 and threads <= K1_CLUSTER_THREADS and (C - 1) * chunk < S
+            and (C == 1 or chunk >= d_max) and C * threads // 32 <= 32
+            and 2 * d_max + 1 <= K1_WIDE_BAND)
+
+
+def k1_cluster(N: int, S: int, d_max: int, sms: int = 132) -> int:
+    """K1's layout for N tracks at S states on a card of `sms` SMs: 0 for
+    one block per track while its band column fits its registers (2 d_max
+    + 1 <= 32) or no cluster fits; else the cluster kernel, with C blocks a
+    track, C the largest of 8, 4, 2 that fits and keeps N C <= sms (one
+    block an SM), or the smallest that fits when none does."""
+    if 2 * d_max + 1 <= K1_REG_BAND:
+        return 0
+    fits = [C for C in (2, 4, 8) if k1_cluster_fits(S, d_max, C)]
+    if not fits:
+        return 0
+    wave = [C for C in fits if N * C <= sms]
+    return max(wave) if wave else min(fits)
+
+
+def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths,
+                   cluster: int | None = None):
     """K1: banded batched forward DP. Same contract as banded_forward_plain;
     on the GPU, rows of t1m1 at or beyond a track's length are left
-    unwritten (the backtrace never reads them)."""
+    unwritten (the backtrace never reads them). cluster: the layout (0: one
+    block per track; C >= 1: a cluster of C blocks per track); None takes
+    k1_cluster's."""
     N, T, S = log_obs.shape
     if S != bs.S:
         raise ValueError(f"log_obs has {S} states, the structure {bs.S}")
@@ -418,12 +466,21 @@ def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths):
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)
     P = cuda_lib.ptr
-    rc = lib.vspl_banded_forward(
-        P(log_obs), P(bv), P(cls), P(log_pi), P(lens_d), P(t1m1), P(t1_last),
-        N, T, S, bs.d_max, bv.shape[0], LOG_TINY, bs.log_c_uv, bs.log_c_vu,
-        bs.log_c_uu, cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check(lib, rc, "banded forward (K1)")
+    C = k1_cluster(N, S, bs.d_max, torch.cuda.get_device_properties(dev).multi_processor_count
+                   ) if cluster is None else cluster
+    if C:
+        rc = lib.vspl_banded_forward_cluster(
+            P(log_obs), P(bv), P(cls), P(log_pi), P(lens_d), P(t1m1), P(t1_last),
+            N, T, S, bs.d_max, C, LOG_TINY, bs.log_c_uv, bs.log_c_vu, bs.log_c_uu,
+            cuda_lib.stream_ptr(dev),
+        )
+    else:
+        rc = lib.vspl_banded_forward(
+            P(log_obs), P(bv), P(cls), P(log_pi), P(lens_d), P(t1m1), P(t1_last),
+            N, T, S, bs.d_max, bv.shape[0], LOG_TINY, bs.log_c_uv, bs.log_c_vu,
+            bs.log_c_uu, cuda_lib.stream_ptr(dev),
+        )
+    cuda_lib.check(lib, rc, f"banded forward (K1, cluster {C})")
     banded_forward.launches += 1
     return t1_last, t1m1
 

@@ -5,8 +5,10 @@ K3 (forward) and K4 (backtrace) decode batches of tracks; K7 (forward) and
 K8 (backtrace) decode windows of one track, each with its own length, reset
 row and start state (the single-track kernels of the JAX package, which the
 sequence-parallel decode runs over its time blocks). All four are CUDA C++,
-K3/K4 in csrc/viterbi_dense.cu and K7/K8 in csrc/viterbi_window.cu, each
-with its plain PyTorch version here. The forwards store no backpointers:
+K7/K8 in csrc/viterbi_window.cu, K4 in csrc/viterbi_dense.cu, and K3 on
+K7's kernel with every reset row 0 (its own cluster kernel in
+csrc/viterbi_dense.cu above 768 states), each with its plain PyTorch
+version here. The forwards store no backpointers:
 they write the shifted rows t1m1[:, t] = T1[t-1] (row 0 zeros), and the
 backtrace rebuilds each pointer as the first-max argmax of
 t1m1[t] + logB[s_t, :] — the very row the forward step reduced, so paths
@@ -129,36 +131,100 @@ _SIGNATURES = {
 }
 _WINDOW_SIGNATURES = {
     "vspl_window_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vspl_dense_forward_window": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vspl_window_max_clusters": [_I, _P],
     "vspl_window_backtrace": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vspl_window_cluster_size": [_I],
 }
 
 
-def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths):
+# K3's routes: K7's kernel with every reset row 0 ("window": the table slice
+# in registers, rows signalled by arrival, up to K7_MAX_STATES states), or
+# the cluster kernel of csrc/viterbi_dense.cu ("cluster": the table streamed
+# from L2 every frame, any S)
+DENSE_ROUTES = ("window", "cluster")
+K7_MAX_STATES = 768
+
+
+def k3_route(S: int) -> str:
+    """K3's route at S states: "window" while K7's kernel takes S, else
+    "cluster"."""
+    return "window" if S <= K7_MAX_STATES else "cluster"
+
+
+# A frame of K7's kernel with G tracks a cluster takes about 1 + 0.7 (G - 1)
+# times one with one track (the slice in registers serves all G rows; the
+# exchange overlaps): 1.79, 2.49, 3.33 at 361 states and 1.65, 2.33, 3.0 at
+# 722 for G = 2, 3, 4 (scripts/gpu_dense_probe.py; PERF.md).
+K3_TRACK_COST = 0.7
+
+
+def k3_tracks_per_cluster(N: int, clusters: int) -> int:
+    """Tracks each of K3's window clusters decodes (1-4), for N tracks on a
+    card that holds `clusters` of K7's clusters at once: the G that
+    minimises the waves, ceil(ceil(N / G) / clusters), times a frame's cost
+    at G tracks, 1 + K3_TRACK_COST (G - 1); the fewer tracks on a tie."""
+    def cost(G):
+        return -(-(-(-N // G)) // max(clusters, 1)) * (1 + K3_TRACK_COST * (G - 1))
+    return min((1, 2, 3, 4), key=lambda G: (cost(G), G))
+
+
+_MAX_CLUSTERS: dict = {}
+
+
+def window_max_clusters(S: int) -> int:
+    """How many of K7's clusters (one window each) the card holds at once at
+    S states (cudaOccupancyMaxActiveClusters; builds the kernel's library)."""
+    if S not in _MAX_CLUSTERS:
+        lib = cuda_lib.load("viterbi_window", _WINDOW_SIGNATURES)
+        out = ctypes.c_int(0)
+        cuda_lib.check(lib, lib.vspl_window_max_clusters(S, ctypes.byref(out)),
+                       "K7 cluster occupancy")
+        _MAX_CLUSTERS[S] = out.value
+    return _MAX_CLUSTERS[S]
+
+
+def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, route: str | None = None,
+                  tracks: int | None = None):
     """K3: dense batched forward DP. Same contract as dense_forward_plain;
     on the GPU, rows of t1m1 at or beyond a track's length are left
-    unwritten."""
+    unwritten. route: "window" or "cluster" (DENSE_ROUTES); None takes
+    k3_route's. tracks: the window route's tracks a cluster (1-4); None
+    takes k3_tracks_per_cluster's."""
     N, T, S = log_obs.shape
     lens = cuda_lib.host_lengths(lengths, N, T)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
     log_pi = torch.as_tensor(log_pi, dtype=torch.float32)
     if log_B.shape != (S, S) or log_pi.shape != (S,):
         raise ValueError(f"bad shapes log_B={tuple(log_B.shape)} log_pi={tuple(log_pi.shape)}")
+    if route not in (None, *DENSE_ROUTES):
+        raise ValueError(f"K3 has the routes {DENSE_ROUTES}, not {route!r}")
     if log_obs.device.type == "cpu":
         return dense_forward_plain(log_B, log_pi, log_obs, lens)
     dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
-    log_A = log_B.to(dev).t().contiguous()  # log_A[s', s] = log_B[s, s']
+    route = route or k3_route(S)
     log_pi = log_pi.to(dev).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
     t1m1 = torch.empty_like(log_obs)
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
-    lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
     P = cuda_lib.ptr
-    rc = lib.vspl_dense_forward(
-        P(log_obs), P(log_A), P(log_pi), P(lens_d), P(t1m1), P(t1_last),
-        N, T, S, cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check(lib, rc, "dense forward (K3)")
+    if route == "window":
+        if S > K7_MAX_STATES:
+            raise ValueError(f"K3's window route takes at most {K7_MAX_STATES} states, not {S}")
+        lib = cuda_lib.load("viterbi_window", _WINDOW_SIGNATURES)
+        G = k3_tracks_per_cluster(N, window_max_clusters(S)) if tracks is None else tracks
+        rc = lib.vspl_dense_forward_window(
+            P(log_obs), P(log_B.to(dev).contiguous()), P(log_pi), P(lens_d), P(t1m1),
+            P(t1_last), N, T, S, G, cuda_lib.stream_ptr(dev),
+        )
+    else:
+        lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
+        log_A = log_B.to(dev).t().contiguous()  # log_A[s', s] = log_B[s, s']
+        rc = lib.vspl_dense_forward(
+            P(log_obs), P(log_A), P(log_pi), P(lens_d), P(t1m1), P(t1_last),
+            N, T, S, cuda_lib.stream_ptr(dev),
+        )
+    cuda_lib.check(lib, rc, f"dense forward (K3, {route} route)")
     dense_forward.launches += 1
     return t1_last, t1m1
 
