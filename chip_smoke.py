@@ -6,13 +6,14 @@ their entry points, and times the kernels at full width.
     python3 chip_smoke.py [--baseline DIR]
 
 --baseline DIR: a tree of an earlier commit of this repo (for example
-`git archive 9cb2ea1 | tar -x -C runs/base`); its viterbi_spl_tpu_torch
+`git archive f0acbee | tar -x -C runs/base`); its viterbi_spl_tpu_torch
 package is imported as `vspl_baseline` and its csrc/viterbi_banded.cu,
-viterbi_dense.cu and viterbi_window.cu built into its own build directory
-(while this tree's kernels build), and phases 4, 4b and 4d time its K1, K2,
-K3 and K9 wrappers, and phase 4c its K7, in turns with this tree's (old,
-new, new, old) as *_base_ms keys, each checked bit-equal to this tree's
-output on the same inputs. Without it those keys are null.
+viterbi_dense.cu, viterbi_window.cu and obs.cu built into its own build
+directory (while this tree's kernels build), and phases 4, 4b and 4d time
+its K1-K6 and K9 wrappers, and phase 4c its K7, in turns with this tree's
+(old, new, new, old) as *_base_ms keys, each checked bit-equal to this
+tree's output on the same inputs (states equal for K2/K4, log
+observations bit-equal for K5/K6). Without it those keys are null.
 
 Phases (one JSON line each):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, build time.
@@ -21,7 +22,9 @@ Phases (one JSON line each):
      d_max 40), K3/K4 at 722 (imm's analytic matrix) and 361 (a random
      dense matrix); exact equality (tolerance 0), and track 0 against the
      oracle; K1 by its rule's layout and by one block a track, K3 by both
-     its routes (K7's kernel, the cluster kernel); K2 by both its routes (the backpointer pass and the chase, and
+     its routes (K7's kernel, the cluster kernel), K4 by its rule's
+     segments, as one chain a track and in 7-frame segments with no
+     warm-up (its seams re-chase); K2 by both its routes (the backpointer pass and the chase, and
      a chain per track), also on the tie fixture (hmm/fixtures.py:
      equal maxima at every step of every chase), equal to its plain version
      and to the fixture's path. K5/K6 at 361 bins (spw 5) and 722 (spw 16 and 20) under the
@@ -48,15 +51,16 @@ Phases (one JSON line each):
      oracle on the port's own fused log observations, and K5, K6 and K9
      hold against their plain versions on those inputs.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
-     N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense);
-     with --baseline, the earlier K1/K2 in turns at the banded shapes and
-     the earlier K3 at the dense ones.
+     N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
+     with K4's segment length and the frames its seams re-chased); with
+     --baseline, the earlier K1/K2 in turns at the banded shapes and the
+     earlier K3/K4 at the dense ones.
   4b. bench.py's two serving chains: 361 states, N=128, T=8192, spw 5;
      722 states, N=64, T=4096, spw 16, d_max 40, track 0 at length 1024.
      ms and frames/s of K5 alone, K6 (scaled) alone, K5 -> K1 -> argmax ->
      K2, K9 -> K2, and the default path (the PyTorch observation model, the
      log, then K1/K2); track 0 against the oracle on K5's log observations;
-     with --baseline, the earlier K1, K2 and K9 in turns.
+     with --baseline, the earlier K1, K2, K5, K6 and K9 in turns.
   4c. the single-track kernels: K7 and K8 alone (us per frame and per step,
      K7's cluster size) and the single-track decode on the 32768-frame
      tonet track, the time-sharded decode's ms per halo attempt against it,
@@ -67,7 +71,7 @@ Phases (one JSON line each):
      K9 on the fused decode API's batch, K7/K8 over the time-sharded
      decode's windows at each halo it tried and the seam-stress fixture's;
      the sum of those times and of their bounds; with --baseline, the
-     earlier K1, K2, K3 and K9 in turns at the same launches, and their sums.
+     earlier K1-K6 and K9 in turns at the same launches, and their sums.
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
      bounds it (and the phase 4d sums).
@@ -231,17 +235,24 @@ def kernel_pair(kind, A, pi, log_obs, lengths):
         check(VB.extract_banded_structure(A) is None, "dense matrix has no banded structure")
         dev = log_obs.device
         lB, lpi = torch.from_numpy(log_B).to(dev), torch.from_numpy(log_pi).to(dev)
-        fwd = lambda o, L, route=None: VD.dense_forward(log_B, log_pi, o, L, route=route)  # noqa: E731
-        bt = lambda t1m1, last, L, route=None: VD.dense_backtrace(log_B, t1m1, last, L)  # noqa: E731
+        # the tables on the card, so that no timing includes their upload
+        fwd = lambda o, L, route=None: VD.dense_forward(lB, lpi, o, L, route=route)  # noqa: E731
+        bt = lambda t1m1, last, L, route=None: VD.dense_backtrace(  # noqa: E731
+            lB, t1m1, last, L, **K4_VARIANTS[route])
         fwd_p = lambda o, L: VD.dense_forward_plain(lB, lpi, o, L)  # noqa: E731
         bt_p = lambda t1m1, last, L: VD.dense_backtrace_plain(lB, t1m1, last, L)  # noqa: E731
     return (fwd, bt, fwd_p, bt_p), log_B, log_pi
 
 
+# K4's variants held against its plain version: its rule's segments, one
+# chain a track, and segments of 7 frames with no warm-up (the seams re-chase)
+K4_VARIANTS = {None: {}, "chain": {"segment": 1 << 30}, "seams": {"segment": 7, "warmup": 0}}
+
+
 def k2_routes(kind):
     """The backtrace's routes to hold against its plain version: K2's two
-    (banded_backtrace's route), or K4's one."""
-    return ("pass", "chain") if kind == "banded" else (None,)
+    (banded_backtrace's route), or K4's variants (K4_VARIANTS)."""
+    return ("pass", "chain") if kind == "banded" else tuple(K4_VARIANTS)
 
 
 def forward_routes(kind):
@@ -932,7 +943,7 @@ def phase_timing(dev, shapes, base=None) -> dict:
         ms_f, ms_f_old = in_turns(lambda: out.update(f=fwd(log_obs, lengths)), old_f, iters)
         t1_last, t1m1 = out.pop("f")
         last = torch.argmax(t1_last, dim=1).to(torch.int32)
-        old_b = base and base.backtrace(kind, bs, t1m1, last, lengths)
+        old_b = base and base.backtrace(kind, bs, log_B, t1m1, last, lengths)
         ms_b, ms_b_old = in_turns(lambda: out.update(b=bt(t1m1, last, lengths)), old_b, iters)
         states = out.pop("b")
         if old_f:
@@ -941,6 +952,12 @@ def phase_timing(dev, shapes, base=None) -> dict:
         if old_b:
             check(same_states(old_b(), states, lengths),
                   f"{label}: the baseline's {kb} gives the same states")
+        k4 = None
+        if not bs:  # K4's segments by its rule and the frames its seams re-chased
+            fixups = torch.zeros(N, dtype=torch.int32, device=dev)
+            VD.dense_backtrace(log_B, t1m1, last, lengths, fixups=fixups)
+            k4 = {"segment": VD.k4_segment_length(N, T, VD.dense_backtrace_resident(S)),
+                  "warmup": VD.K4_WARMUP, "frames_rechased": int(fixups.sum())}
 
         def decode():
             t1, rows = fwd(log_obs, lengths)
@@ -977,6 +994,7 @@ def phase_timing(dev, shapes, base=None) -> dict:
                "K3_route": None if bs else VD.k3_route(S),
                "K3_tracks_per_cluster": None if bs else VD.k3_tracks_per_cluster(
                    N, VD.window_max_clusters(S)),
+               "K4_segments": k4,
                "voiced_share": voiced_share(states, S, lengths),
                "plain_T": T_PLAIN, "oracle_seconds": oracle_s, "track0_matches_oracle": oracle_ok}
         emit(rec)
@@ -1038,9 +1056,17 @@ def phase_serving(dev, base=None) -> dict:
             return VB.banded_backtrace(bs, rows, argmax(t1), lengths)
 
         out = {}
-        ms_k5 = cuda_ms(lambda: out.update(o=OF.log_obs(logits, shaun)), iters)
+        ms_k5, ms_k5_old = in_turns(lambda: out.update(o=OF.log_obs(logits, shaun)),
+                                    base and (lambda: base.log_obs(logits, shaun)), iters)
         log_obs = out.pop("o")
-        ms_k6 = cuda_ms(lambda: OF.log_obs(logits, scaled), iters)
+        ms_k6, ms_k6_old = in_turns(lambda: out.update(o6=OF.log_obs(logits, scaled)),
+                                    base and (lambda: base.log_obs(logits, scaled)), iters)
+        log_obs_6 = out.pop("o6")
+        if base:
+            check(torch.equal(base.log_obs(logits, shaun), log_obs)
+                  and torch.equal(base.log_obs(logits, scaled), log_obs_6),
+                  f"{label}: the baseline's K5 and K6 give the same bits")
+        del log_obs_6
         ms_k1, ms_k1_old = in_turns(
             lambda: out.update(f=VB.banded_forward(bs, log_pi, log_obs, lengths)),
             base and (lambda: base.k1(bs, log_pi, log_obs, lengths)), iters)
@@ -1103,8 +1129,10 @@ def phase_serving(dev, base=None) -> dict:
                "d_max": d_max, "frames": frames,
                "K5_ms": ms_k5, "K5_frames_per_s": fps(ms_k5, N * T),
                "K5_plain_ms": ms_k5_plain, "K5_bound_ms": b5[0], "K5_bound_by": b5[1],
+               "K5_base_ms": ms_k5_old,
                "K6_ms": ms_k6, "K6_frames_per_s": fps(ms_k6, N * T),
                "K6_plain_ms": ms_k6_plain, "K6_bound_ms": b6[0], "K6_bound_by": b6[1],
+               "K6_base_ms": ms_k6_old,
                "K9_ms": ms_k9, "K9_plain_ms": ms_k9_plain, "K9_bound_ms": b9[0],
                "K9_bound_by": b9[1], "K9_plain_T": T_PLAIN, "K9_base_ms": ms_k9_old,
                "K1_on_K5_ms": ms_k1, "K2_ms_in_chain": ms_k2,
@@ -1128,8 +1156,8 @@ def phase_serving(dev, base=None) -> dict:
 class Baseline:
     """An earlier tree's viterbi_spl_tpu_torch, imported as the package
     `vspl_baseline`: its own wrappers of K1, K2, K9 (banded_forward,
-    banded_backtrace, banded_forward_obs), K3 and K7 (dense_forward,
-    window_forward), with its
+    banded_backtrace, banded_forward_obs), K3, K4 and K7 (dense_forward,
+    dense_backtrace, window_forward) and K5/K6 (obs_fused.log_obs), with its
     kernels built from its own csrc/ into its own build directory. They take
     and return what this tree's wrappers do."""
 
@@ -1145,14 +1173,15 @@ class Baseline:
         vb = importlib.import_module("vspl_baseline.hmm.viterbi_banded")
         self.k1, self.k2, self.k9 = vb.banded_forward, vb.banded_backtrace, vb.banded_forward_obs
         vd = importlib.import_module("vspl_baseline.hmm.viterbi_dense")
-        self.k3, self.k7 = vd.dense_forward, vd.window_forward
+        self.k3, self.k4, self.k7 = vd.dense_forward, vd.dense_backtrace, vd.window_forward
+        self.log_obs = importlib.import_module("vspl_baseline.hmm.obs_fused").log_obs
         self.error = None
         self.thread = threading.Thread(target=self._build)
         self.thread.start()
 
     def _build(self) -> None:
         try:
-            self.cuda_lib.build(["viterbi_banded", "viterbi_dense", "viterbi_window"])
+            self.cuda_lib.build(["viterbi_banded", "viterbi_dense", "viterbi_window", "obs"])
         except Exception as e:  # re-raised by load()
             self.error = e
 
@@ -1164,17 +1193,19 @@ class Baseline:
 
     def forward(self, kind, bs, log_B, log_pi, log_obs, lengths):
         """A closure of the baseline's forward on these inputs: K1 (banded)
-        or K3 (dense)."""
+        or K3 (dense, its tables on the card as this tree's are)."""
         if kind == "banded":
             return lambda: self.k1(bs, log_pi, log_obs, lengths)
-        return lambda: self.k3(log_B, log_pi, log_obs, lengths)
+        lB, lpi = (torch.as_tensor(x).to(log_obs.device) for x in (log_B, log_pi))
+        return lambda: self.k3(lB, lpi, log_obs, lengths)
 
-    def backtrace(self, kind, bs, t1m1, last, lengths):
-        """A closure of the baseline's K2 on these inputs (banded), or None:
-        K4 is unchanged."""
+    def backtrace(self, kind, bs, log_B, t1m1, last, lengths):
+        """A closure of the baseline's backtrace on these inputs: K2
+        (banded) or K4 (dense)."""
         if kind == "banded":
             return lambda: self.k2(bs, t1m1, last, lengths)
-        return None
+        lB = torch.as_tensor(log_B).to(t1m1.device)
+        return lambda: self.k4(lB, t1m1, last, lengths)
 
 
 def voiced_share(states, S, lengths) -> float:
@@ -1316,7 +1347,7 @@ def phase_path_shapes(dev, ctx, seq, base=None) -> dict:
         ms_f, ms_f_old = in_turns(lambda: out.update(f=fwd(log_obs, lengths)), old_f, 5)
         t1, rows = out.pop("f")
         last = argmax(t1)
-        old_b = base and base.backtrace(kind, bs, rows, last, lengths)
+        old_b = base and base.backtrace(kind, bs, log_B, rows, last, lengths)
         ms_b, ms_b_old = in_turns(lambda: out.update(b=bt(rows, last, lengths)), old_b, 5)
         if old_f:
             check(same_forward(old_f(), (t1, rows), lengths),
@@ -1343,8 +1374,14 @@ def phase_path_shapes(dev, ctx, seq, base=None) -> dict:
             softmax = obs["method"] != "shaun"
             peaks = OF._peaks(batch, obs["spw"])
             label = f"{obs['method']} N={N} T={T} bins={n_bins}"
-            add("K6" if softmax else "K5", label, cuda_ms(lambda: OF.log_obs(batch, obs), 5),
-                bound(*obs_work(n_bins, obs["spw"], N * T, int(peaks.sum()), softmax)))
+            res = {}
+            ms, ms_old = in_turns(lambda: res.update(o=OF.log_obs(batch, obs)),
+                                  base and (lambda: base.log_obs(batch, obs)), 5)
+            if base:
+                check(torch.equal(base.log_obs(batch, obs), res["o"]),
+                      f"{label}: the baseline's K5/K6 gives the same bits")
+            add("K6" if softmax else "K5", label, ms,
+                bound(*obs_work(n_bins, obs["spw"], N * T, int(peaks.sum()), softmax)), ms_old)
             bs = VB.extract_banded_structure(st.transition_matrix)
             if bs is not None:
                 _, log_pi = prepare_log_params(st.transition_matrix, st.init_probs)
@@ -1389,7 +1426,7 @@ def phase_path_shapes(dev, ctx, seq, base=None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="tree of an earlier commit whose K1, K2, K3, K7 and K9 phases 4-4d "
+                    help="tree of an earlier commit whose K1-K7 and K9 phases 4-4d "
                          "time beside these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -7,6 +7,18 @@ viterbi_spl_tpu_torch/csrc/viterbi_banded.cu) on the GPU:
    K9's producers) on logits staged in shared memory; lane 0 of each warp
    reads clock64 and %globaltimer around every frame. Mean SM cycles and ns
    per frame per warp, at 361 states (spw 5) and 722 (spw 16).
+   obsparts: the standalone K5/K6 of f0acbee (one warp a frame, the
+   logits gathered from device memory through the index map), copied here
+   with clock64 between the parts of every frame in every warp of the
+   grid: staging, window maxima and peak test, exp and sums, stores. Mean
+   SM cycles a frame per warp for each part, at the serving shapes (361
+   states spw 5, 722 states spw 16 and 20), beside the shipped K5/K6.
+   obsdesigns: the shipped K5/K6 (tiles of whole frames bulk-copied into a
+   ring for consumer warps) at its rule's layout and at others, in turns
+   with f0acbee's loop (the gather by plain loads, 64 warps an SM) and with
+   a candidate in which each warp gathers its next frame by cp.async while
+   it computes one (both appended below, on this tree's frame function),
+   at the same shapes, every design bit-equal to the shipped one.
 2. K9 at producer and ring layouts (P warps, R frames) other than its
    rule's, each launch bit-equal to K5/K6 -> K1 on the same logits, timed
    in turns with K1 alone (on K5/K6's output) and with the rule's layout:
@@ -54,7 +66,8 @@ viterbi_spl_tpu_torch/csrc/viterbi_banded.cu) on the GPU:
    with the shipped one at 722 states, 8 and 64 tracks.
 
     python3 scripts/gpu_banded_probe.py [--parts k1,k1layouts,k1variants,k1cluster,
-                                                 obs,k9,k2,routes,voicing] [--sass FILE]
+                                                 obs,obsparts,obsdesigns,k9,k2,routes,
+                                                 voicing] [--sass FILE]
 
 Prints one JSON line per reading, and the card's name and power limit. Each
 variant's source is csrc/viterbi_banded.cu, patched, with entries for the
@@ -470,7 +483,8 @@ __global__ void obs_clock_kernel(VsplObsArgs a, int frames, long long* out) {
   b.log_prior = prior_s;
   long long cyc = 0, ns = 0;
   for (int f = warp; f < frames; f += warps) {
-    vspl_stage_logits(stage, a.logits + static_cast<size_t>(f) * a.n_bins, idx_s, n_stage, lane);
+    const float* row = a.logits + static_cast<size_t>(f) * a.n_bins;
+    for (int j = lane; j < n_stage; j += 32) stage[j] = row[idx_s[j]];
     __syncwarp();
     const long long c0 = clock64();
     const unsigned long long t0 = probe_ns();
@@ -670,6 +684,287 @@ extern "C" int probe_k2_chase(const short* bp, const int* last, const int* lengt
 
 P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# f6e0's standalone K5/K6 (9cb2ea1 and f0acbee: one warp a frame, 8 warps a
+# block, at most 16 blocks an SM, each lane gathering its frame's
+# reflect-padded logits from device memory by the index map), copied into
+# the probe with clock64 between the parts of every frame in every warp:
+# staging (the gather, until its values are in shared memory), window
+# maxima and the peak test (with the frame's peak maximum), exp and sums
+# (up to log c / the denominator), stores. Each warp adds its cycles and
+# frames to clk[0..4] (atomics, lane 0).
+OBS_ENTRIES = r"""
+
+#define PROBE_OBS_WARPS 8
+
+template <int kModel>
+__global__ void __launch_bounds__(PROBE_OBS_WARPS * 32)
+    obs_parts_kernel(VsplObsArgs a, float* __restrict__ out, int n_frames,
+                     unsigned long long* clk) {
+  extern __shared__ float smem[];
+  const int n_stage = a.n_bins + 2 * a.spw;
+  const int S = a.n_bins + 1;
+  int* idx_s = reinterpret_cast<int*>(smem);
+  float* x_s = smem + n_stage + (threadIdx.x >> 5) * n_stage;
+  for (int i = threadIdx.x; i < n_stage; i += blockDim.x) idx_s[i] = a.idx[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int n_bins = a.n_bins, spw = a.spw;
+  long long acc[4] = {0, 0, 0, 0};
+  long long frames = 0;
+  for (int f = blockIdx.x * PROBE_OBS_WARPS + (threadIdx.x >> 5); f < n_frames;
+       f += gridDim.x * PROBE_OBS_WARPS) {
+    const long long c0 = clock64();
+    const float* row = a.logits + static_cast<size_t>(f) * n_bins;
+    for (int j = lane; j < n_stage; j += 32) x_s[j] = row[idx_s[j]];
+    __syncwarp();
+    const long long c1 = clock64();
+    unsigned peaks = 0;
+    float pmax = VSPL_NEG_PAD;
+    for (int k = 0, b = lane; b < n_bins; ++k, b += 32) {
+      const float* w = x_s + b;
+      const float x = w[spw];
+      float left = w[0];
+      float right = w[spw + 1];
+      for (int i = 1; i < spw; ++i) {
+        left = fmaxf(left, w[i]);
+        right = fmaxf(right, w[spw + 1 + i]);
+      }
+      if (x > left && x >= right) {
+        peaks |= 1u << k;
+        pmax = fmaxf(pmax, x);
+      }
+    }
+    pmax = vspl_warp_max(pmax);
+    asm volatile("" : "+f"(pmax));
+    const long long c2 = clock64();
+    const bool any_peak = pmax > VSPL_NEG_PAD * 0.5f;
+    float* o = out + static_cast<size_t>(f) * S;
+    long long c3;
+    if constexpr (kModel == VSPL_OBS_SHAUN) {
+      const float th = a.p0, offset = a.p1, scale = a.p2;
+      const float gmax = pmax;
+      const float sign = gmax >= th ? 1.0f : -1.0f;
+      const float s = __fadd_rn(__fmul_rn(scale, __fsub_rn(gmax, th)), __fmul_rn(sign, offset));
+      const float p_voiced = any_peak ? 1.0f / (1.0f + expf(-s)) : 0.0f;
+      float denom = 0.0f;
+      for (int k = 0, b = lane; b < n_bins; ++k, b += 32)
+        if ((peaks >> k) & 1u) denom = __fadd_rn(denom, expf(__fsub_rn(x_s[spw + b], gmax)));
+      denom = vspl_warp_sum(denom);
+      float log_c =
+          __fsub_rn(logf(__fadd_rn(p_voiced, FLT_MIN)), logf(fmaxf(denom, 1e-30f)));
+      asm volatile("" : "+f"(log_c));
+      c3 = clock64();
+      for (int k = 0, b = lane; b < n_bins; ++k, b += 32)
+        o[b] = ((peaks >> k) & 1u)
+                   ? fmaxf(__fadd_rn(__fsub_rn(x_s[spw + b], gmax), log_c), a.log_tiny)
+                   : a.log_tiny;
+      if (lane == 0) o[n_bins] = logf(__fadd_rn(__fsub_rn(1.0f, p_voiced), FLT_MIN));
+    } else {
+      const float vth = a.p0, prior_uv = a.p1;
+      const float gmax = fmaxf(pmax, vth);
+      float sum = 0.0f;
+      for (int k = 0, b = lane; b < n_bins; ++k, b += 32)
+        if ((peaks >> k) & 1u) sum = __fadd_rn(sum, expf(__fsub_rn(x_s[spw + b], gmax)));
+      sum = vspl_warp_sum(sum);
+      const float exp_nm = expf(__fsub_rn(vth, gmax));
+      const float denom = __fadd_rn(sum, exp_nm);
+      float log_denom = logf(denom);
+      asm volatile("" : "+f"(log_denom));
+      c3 = clock64();
+      for (int k = 0, b = lane; b < n_bins; ++k, b += 32)
+        o[b] = (((peaks >> k) & 1u) && any_peak)
+                   ? fmaxf(__fsub_rn(__fsub_rn(__fsub_rn(x_s[spw + b], gmax), log_denom),
+                                     a.log_prior[b]),
+                           a.log_tiny)
+                   : a.log_tiny;
+      if (lane == 0) {
+        const float unvoiced = any_peak ? (exp_nm / denom) / prior_uv : 1.0f / prior_uv;
+        o[n_bins] = logf(__fadd_rn(unvoiced, FLT_MIN));
+      }
+    }
+    __syncwarp();
+    const long long c4 = clock64();
+    acc[0] += c1 - c0;
+    acc[1] += c2 - c1;
+    acc[2] += c3 - c2;
+    acc[3] += c4 - c3;
+    ++frames;
+  }
+  if (lane == 0) {
+    for (int i = 0; i < 4; ++i) atomicAdd(clk + i, static_cast<unsigned long long>(acc[i]));
+    atomicAdd(clk + 4, static_cast<unsigned long long>(frames));
+  }
+}
+
+extern "C" int probe_obs_parts(const float* logits, const int* idx, const float* log_prior,
+                               float* out, int model, int n_frames, int n_bins, int spw,
+                               float p0, float p1, float p2, float log_tiny,
+                               unsigned long long* clk) {
+  const VsplObsArgs a{logits, idx, log_prior, p0, p1, p2, log_tiny, n_bins, spw};
+  const size_t smem =
+      static_cast<size_t>(1 + PROBE_OBS_WARPS) * (n_bins + 2 * spw) * sizeof(float);
+  auto kernel = model == VSPL_OBS_SHAUN ? obs_parts_kernel<VSPL_OBS_SHAUN>
+                                        : obs_parts_kernel<VSPL_OBS_SOFTMAX>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long want = (static_cast<long long>(n_frames) + PROBE_OBS_WARPS - 1) / PROBE_OBS_WARPS;
+  const int blocks = static_cast<int>(want < 16LL * sms ? want : 16LL * sms);
+  kernel<<<blocks, PROBE_OBS_WARPS * 32, smem>>>(a, out, n_frames, clk);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+OBS_PARTS = ("staging", "window_maxima", "exp_and_sums", "stores")
+# K5/K6 designs timed beside the shipped one (tiles of whole frames
+# bulk-copied into a ring for consumer warps): f0acbee's loop (one warp a
+# frame, 64 warps an SM, the gather by plain loads), and the rejected
+# candidate in which each warp gathers its next frame by cp.async into a
+# second row while it computes one (K9's producer loop); both on this
+# tree's frame function.
+OBS_CANDIDATES = r"""
+
+// ---- f0acbee's K5/K6 loop (one warp a frame, the gather by plain loads) ----
+
+#define PROBE_PR6_WARPS 8
+
+template <int kModel>
+__global__ void __launch_bounds__(PROBE_PR6_WARPS * 32)
+    pr6_obs_kernel(VsplObsArgs a, float* __restrict__ out, int n_frames) {
+  extern __shared__ float smem[];
+  const int n_stage = a.n_bins + 2 * a.spw;
+  const int S = a.n_bins + 1;
+  int* idx_s = reinterpret_cast<int*>(smem);                     // [n_stage]
+  float* stage = smem + n_stage + (threadIdx.x >> 5) * n_stage;  // this warp's frame
+  for (int i = threadIdx.x; i < n_stage; i += blockDim.x) idx_s[i] = a.idx[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int f = blockIdx.x * PROBE_PR6_WARPS + (threadIdx.x >> 5); f < n_frames;
+       f += gridDim.x * PROBE_PR6_WARPS) {
+    const float* row = a.logits + static_cast<size_t>(f) * a.n_bins;
+    for (int j = lane; j < n_stage; j += 32) stage[j] = row[idx_s[j]];
+    __syncwarp();
+    vspl_obs_frame<kModel>(stage, out + static_cast<size_t>(f) * S, a, lane);
+    __syncwarp();  // every lane has read the row before the next frame lands
+  }
+}
+
+template <int kModel>
+static int launch_pr6_obs(const VsplObsArgs& a, float* out, int n_frames, void* stream) {
+  if (a.n_bins < 2 || a.n_bins > VSPL_OBS_MAX_BINS || a.spw < 1 || a.spw >= a.n_bins ||
+      n_frames <= 0)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      static_cast<size_t>(1 + PROBE_PR6_WARPS) * (a.n_bins + 2 * a.spw) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pr6_obs_kernel<kModel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long want = (static_cast<long long>(n_frames) + PROBE_PR6_WARPS - 1) / PROBE_PR6_WARPS;
+  const int blocks = static_cast<int>(want < 16LL * sms ? want : 16LL * sms);
+  pr6_obs_kernel<kModel><<<blocks, PROBE_PR6_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, out, n_frames);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_pr6_log_obs(const float* logits, const int* idx, const float* log_prior,
+                                 float* out, int model, int n_frames, int n_bins, int spw,
+                                 float p0, float p1, float p2, float log_tiny) {
+  const VsplObsArgs a{logits, idx, log_prior, p0, p1, p2, log_tiny, n_bins, spw};
+  return model == VSPL_OBS_SHAUN ? launch_pr6_obs<VSPL_OBS_SHAUN>(a, out, n_frames, nullptr)
+                                 : launch_pr6_obs<VSPL_OBS_SOFTMAX>(a, out, n_frames, nullptr);
+}
+
+
+// ---- candidate: each warp gathers its next frame by cp.async while it computes one ----
+
+#define PROBE_ASYNC_WARPS 8
+
+// Dynamic shared memory of a block of `warps` warps: the index map, the
+// log-prior row and two staged rows per warp.
+inline size_t probe_async_smem(int n_bins, int spw, int warps) {
+  const size_t n_stage = n_bins + 2 * spw;
+  return (n_stage + n_bins + 2 * static_cast<size_t>(warps) * n_stage) * sizeof(float);
+}
+
+template <int kModel>
+__global__ void __launch_bounds__(PROBE_ASYNC_WARPS * 32)
+    async_obs_kernel(VsplObsArgs a, float* __restrict__ out, int n_frames) {
+  extern __shared__ float smem[];
+  const int n_bins = a.n_bins, n_stage = n_bins + 2 * a.spw, S = n_bins + 1;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* idx_s = reinterpret_cast<int*>(smem);                   // [n_stage]
+  float* prior_s = smem + n_stage;                              // [n_bins]
+  float* rows = prior_s + n_bins + 2 * warp * n_stage;          // this warp's [2][n_stage]
+  for (int i = threadIdx.x; i < n_stage; i += blockDim.x) idx_s[i] = a.idx[i];
+  if (kModel == VSPL_OBS_SOFTMAX)
+    for (int i = threadIdx.x; i < n_bins; i += blockDim.x) prior_s[i] = a.log_prior[i];
+  __syncthreads();
+  VsplObsArgs b = a;
+  b.log_prior = prior_s;
+  const int stride = gridDim.x * warps;
+  int f = blockIdx.x * warps + warp;
+  if (f < n_frames)
+    vspl_stage_logits_async(rows, a.logits + static_cast<size_t>(f) * n_bins, idx_s, n_stage,
+                            lane);
+  for (int p = 0; f < n_frames; f += stride, p ^= 1) {
+    const int fn = f + stride;
+    if (fn < n_frames)
+      vspl_stage_logits_async(rows + (1 - p) * n_stage, a.logits + static_cast<size_t>(fn) * n_bins,
+                              idx_s, n_stage, lane);
+    else
+      vspl_commit_copies();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // frame f's logits
+    __syncwarp();
+    vspl_obs_frame<kModel>(rows + p * n_stage, out + static_cast<size_t>(f) * S, b, lane);
+    __syncwarp();  // every lane has read row p before it is refilled
+  }
+  vspl_wait_all_rows();
+}
+
+template <int kModel>
+static int launch_async_obs(const VsplObsArgs& a, float* out, int n_frames, int warps,
+                          void* stream) {
+  if (a.n_bins < 2 || a.n_bins > VSPL_OBS_MAX_BINS || a.spw < 1 || a.spw >= a.n_bins ||
+      n_frames <= 0 || warps < 1 || warps > PROBE_ASYNC_WARPS)
+    return cudaErrorInvalidValue;
+  const size_t smem = probe_async_smem(a.n_bins, a.spw, warps);
+  cudaError_t e = cudaFuncSetAttribute(
+      async_obs_kernel<kModel>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, async_obs_kernel<kModel>, warps * 32,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long want = (static_cast<long long>(n_frames) + warps - 1) / warps;
+  const long long most = static_cast<long long>(per_sm) * sms;
+  const int blocks = static_cast<int>(want < most ? want : most);
+  async_obs_kernel<kModel><<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, out, n_frames);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_async_log_obs(const float* logits, const int* idx, const float* log_prior,
+                                   float* out, int model, int n_frames, int n_bins, int spw,
+                                   float p0, float p1, float p2, float log_tiny, int warps) {
+  const VsplObsArgs a{logits, idx, log_prior, p0, p1, p2, log_tiny, n_bins, spw};
+  return model == VSPL_OBS_SHAUN
+             ? launch_async_obs<VSPL_OBS_SHAUN>(a, out, n_frames, warps, nullptr)
+             : launch_async_obs<VSPL_OBS_SOFTMAX>(a, out, n_frames, warps, nullptr);
+}
+"""
+
 
 def patches(name):
     """The (old, new) source edits of a variant."""
@@ -775,6 +1070,124 @@ def clocked_frames(lib, dev):
                       "warps": warps, "frames_per_warp": frames / warps,
                       "cycles_per_frame": float(o[:, 0].sum() / frames),
                       "ns_per_frame": float(o[:, 1].sum() / frames)})
+
+
+def build_obs_probe():
+    """csrc/obs.cu with OBS_ENTRIES appended, built and loaded."""
+    out_dir = cuda_lib.BUILD_DIR / "banded_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "obs_probe.cu"
+    cu.write_text((cuda_lib.CSRC / "obs.cu").read_text() + OBS_ENTRIES + OBS_CANDIDATES)
+    lib = out_dir / "libobs_probe.so"
+    proc = subprocess.run([cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC),
+                           "-o", str(lib), str(cu)], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the observation probe:\n{proc.stdout}{proc.stderr}")
+    emit({"probe": "build", "variant": "obs_probe",
+          "ptxas": [ln.strip() for ln in proc.stdout.splitlines() + proc.stderr.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+    lib = ctypes.CDLL(str(lib))
+    lib.probe_obs_parts.argtypes = [P_, P_, P_, P_, I_, I_, I_, I_, F_, F_, F_, F_, P_]
+    lib.probe_pr6_log_obs.argtypes = [P_, P_, P_, P_, I_, I_, I_, I_, F_, F_, F_, F_]
+    lib.probe_async_log_obs.argtypes = [P_, P_, P_, P_, I_, I_, I_, I_, F_, F_, F_, F_, I_]
+    return lib
+
+
+# bench.py's serving shapes (logits normal - 2): label, n_bins, spw, N, T
+OBS_SHAPES = (("tonet 361 serving", 360, 5, 128, 8192), ("jdc 722 serving", 721, 16, 64, 4096),
+              ("jdc 722 serving spw 20", 721, 20, 64, 4096))
+
+
+def obs_parts(dev):
+    """The standalone K5/K6 frame split by clock64 in every warp of the
+    grid, at the serving shapes, beside the shipped K5/K6's ms."""
+    lib = build_obs_probe()
+    P = cuda_lib.ptr
+    for label, n_bins, spw, N, T in OBS_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(2)
+        logits = torch.randn((N, T, n_bins), generator=g, device=dev).sub_(2.0)
+        idx = torch.as_tensor(OF.reflect_index(n_bins, spw), device=dev)
+        for method in ("shaun", "softmax-scaled"):
+            obs = obs_cfg(method, spw, n_bins, 2)
+            model, _, params, log_prior = OF.obs_params(obs, n_bins)
+            prior = torch.as_tensor(log_prior, device=dev)
+            out = torch.empty((N, T, n_bins + 1), dtype=torch.float32, device=dev)
+            clk = torch.zeros(5, dtype=torch.int64, device=dev)
+
+            def run():
+                rc = lib.probe_obs_parts(P(logits), P(idx), P(prior), P(out), model, N * T, n_bins,
+                                         spw, *map(float, params[:3]), OF.LOG_TINY_F32, P(clk))
+                if rc != 0:
+                    raise RuntimeError(f"probe_obs_parts: CUDA error {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, OF.log_obs(logits, obs)):
+                raise RuntimeError(f"{label} {method}: the clocked kernel differs from K5/K6")
+            clk.zero_()
+            ms_clocked = cuda_ms(run, 1)
+            c = clk.cpu().numpy().astype(np.float64)
+            emit({"probe": "obs_parts", "shape": label, "method": method, "N": N, "T": T,
+                  "spw": spw, "sm_clock_mhz": sm_clock_mhz(),
+                  "cycles_per_frame_per_warp": {k: float(v / c[4]) for k, v in zip(OBS_PARTS, c)},
+                  "frames": int(c[4]), "clocked_ms": ms_clocked,
+                  "shipped_ms": cuda_ms(lambda: OF.log_obs(logits, obs))})
+            del out
+        del logits
+        torch.cuda.empty_cache()
+
+
+def obs_designs(dev):
+    """The shipped K5/K6 at its rule's layout and others (blocks an SM,
+    consumer warps, stages) against f0acbee's loop and the async-gather
+    candidate (8 and 4 warps a block), in turns (in order, then in
+    reverse), at the serving shapes; every design bit-equal to the shipped
+    one."""
+    lib = build_obs_probe()
+    P = cuda_lib.ptr
+    for label, n_bins, spw, N, T in OBS_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(2)
+        logits = torch.randn((N, T, n_bins), generator=g, device=dev).sub_(2.0)
+        idx = torch.as_tensor(OF.reflect_index(n_bins, spw), device=dev)
+        rule = OF.obs_layout(n_bins, spw)
+        for method in ("shaun", "softmax-scaled"):
+            obs = obs_cfg(method, spw, n_bins, 2)
+            model, _, params, log_prior = OF.obs_params(obs, n_bins)
+            prior_arg = None if model == OF.SHAUN else log_prior
+            prior = torch.as_tensor(log_prior, device=dev)
+            out = torch.empty((N, T, n_bins + 1), dtype=torch.float32, device=dev)
+            args = (P(logits), P(idx), P(prior), P(out), model, N * T, n_bins, spw,
+                    *map(float, params[:3]), OF.LOG_TINY_F32)
+
+            def c_entry(fn, *extra):
+                def run():
+                    rc = fn(*args, *extra)
+                    if rc != 0:
+                        raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
+                    return out
+                return run
+
+            designs = {f"shipped {rule}": lambda: OF._launch(logits, spw, params, prior_arg)}
+            for lay in ((1, 15, 2), (2, 7, 2), (4, 7, 2)):
+                designs[f"shipped {lay}"] = lambda lay=lay: OF._launch(logits, spw, params,
+                                                                       prior_arg, layout=lay)
+            designs["f0acbee loop"] = c_entry(lib.probe_pr6_log_obs)
+            designs["async gather 8 warps"] = c_entry(lib.probe_async_log_obs, 8)
+            designs["async gather 4 warps"] = c_entry(lib.probe_async_log_obs, 4)
+            want = designs[f"shipped {rule}"]()
+            for name, fn in designs.items():
+                if not torch.equal(fn(), want):
+                    raise RuntimeError(f"{label} {method}: {name} differs from the shipped K5/K6")
+            del want
+            ms = {k: [] for k in designs}
+            for name in list(designs) + list(reversed(designs)):
+                ms[name].append(cuda_ms(designs[name]))
+            emit({"probe": "obs_designs", "shape": label, "method": method, "N": N, "T": T,
+                  "spw": spw, "ms": {k: float(np.mean(v)) for k, v in ms.items()},
+                  "readings_ms": ms})
+            del out
+        del logits
+        torch.cuda.empty_cache()
 
 
 def k1_frames(libs, dev, sass=None):
@@ -1203,11 +1616,13 @@ def k2_voicing(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", default="k1,k1layouts,k1variants,k1cluster,obs,k9,k2,routes,voicing",
+    ap.add_argument("--parts", default="k1,k1layouts,k1variants,k1cluster,obs,obsparts,obsdesigns,k9,k2,"
+                    "routes,voicing",
                     help="comma-separated: k1 (K1's clocked frame and ms by tracks), "
                          "k1layouts (K1 by one block and by clusters a track), k1variants "
                          "(the one-block frame's variants), k1cluster (the cluster kernel's), obs "
-                         "(clocked observation frames), k9 (layouts), k2 (split), routes (K2's "
+                         "(clocked observation frames), obsparts (the standalone K5/K6 frame's parts, "
+                         "clocked), obsdesigns (K5/K6 designs in turns), k9 (layouts), k2 (split), routes (K2's "
                          "two routes), voicing (the routes by voiced share)")
     ap.add_argument("--sass", default=None,
                     help="with the k1 part: write cuobjdump -sass of the built K1/K2/K9 library "
@@ -1236,6 +1651,10 @@ def main(argv=None) -> int:
         k1_cluster_variants(libs, dev)
     if "obs" in parts:
         clocked_frames(libs["shipped"], dev)
+    if "obsparts" in parts:
+        obs_parts(dev)
+    if "obsdesigns" in parts:
+        obs_designs(dev)
     if "k9" in parts:
         k9_layouts(dev)
     if "k2" in parts:

@@ -1,7 +1,10 @@
 """The port's dense path (hmm/viterbi_dense.py of viterbi_spl_tpu_torch):
 the plain versions of K3/K4 against the JAX package's Pallas kernels in
-interpret mode and the NumPy oracle, and the batched decode API's dispatch.
-The CUDA kernels against their plain versions: tests/test_torch_kernels.py."""
+interpret mode and the NumPy oracle, K4's design on the card (backpointers
+then a chase; the chase in segments with exact seams) modelled in NumPy
+against the JAX batch backtrace, its and K3's host rules, and the batched
+decode API's dispatch. The CUDA kernels against their plain versions:
+tests/test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -145,3 +148,142 @@ def test_k3_tracks_per_cluster_at_the_benchmark_shapes(N, clusters, G):
     """k3_tracks_per_cluster's choice by the measured cost of G tracks a
     cluster against the waves they save."""
     assert TD.k3_tracks_per_cluster(N, clusters) == G
+
+
+# ---- K4: the chase in segments (csrc/viterbi_dense.cu) --------------------
+
+
+def _tie_case(rng, S, N, T):
+    """A dense matrix whose rows are permutations of one row, so that log_B
+    takes three values, each equal across rows, and integer t1m1 rows: the
+    first-max argmax meets equal maxima at every step of every chase."""
+    base = np.repeat(np.float32([1, 2, 3]), -(-S // 3))[:S]
+    base = (base / base.sum()).astype(np.float32)
+    A = np.stack([rng.permutation(base) for _ in range(S)])
+    return A, rng.integers(0, 4, (N, T, S)).astype(np.float32)
+
+
+def _chase(bp, start, lengths):
+    """s_{t-1} = bp[n, t, s_t] from start[n] at frame lengths[n] - 1."""
+    states = np.zeros(bp.shape[:2], np.int32)
+    for n, T in enumerate(lengths):
+        s = int(start[n])
+        states[n, T - 1] = s
+        for t in range(T - 1, 0, -1):
+            s = int(bp[n, t, s])
+            states[n, t - 1] = s
+    return states
+
+
+def _segmented_chase(bp, t1m1, last, lengths, L, W):
+    """K4's kernels in NumPy: each segment of L frames chased from W frames
+    above it (from the last state where that is the last frame, else from
+    the first-max argmax of T1 there), then the seams from the top segment
+    down, each segment whose stored last state differs from the true one
+    chased again from the true state until it meets its stored chase.
+    Returns (states, frames the seams re-chased)."""
+    states = np.zeros(bp.shape[:2], np.int32)
+    fixed = 0
+    for n, n_len in enumerate(lengths):
+        segs = -(-int(n_len) // L)
+        pred = np.zeros(segs, np.int64)
+        for j in range(segs):
+            lo, hi = j * L, min(j * L + L, n_len) - 1
+            top = min(hi + W, n_len - 1)
+            s = int(last[n]) if top == n_len - 1 else int(np.argmax(t1m1[n, top + 1]))
+            for t in range(top, lo - 1, -1):
+                if t <= hi:
+                    states[n, t] = s
+                if t == 0:
+                    break
+                s = int(bp[n, t, s])
+            pred[j] = s
+        e = pred[segs - 1]
+        for j in range(segs - 2, -1, -1):
+            lo, hi = j * L, j * L + L - 1
+            if e == states[n, hi]:
+                e = pred[j]
+                continue
+            s, met = e, False
+            for t in range(hi, lo - 1, -1):
+                if t < hi and s == states[n, t]:
+                    met = True
+                    break
+                states[n, t] = s
+                fixed += 1
+                if t == 0:
+                    break
+                s = int(bp[n, t, s])
+                if t == lo:
+                    break
+            e = pred[j] if met else s
+    return states, fixed
+
+
+@pytest.mark.parametrize("S,P,L,W", [(33, 128, 5, 0), (33, 128, 7, 3), (90, 128, 16, 0),
+                                     (90, 128, 16, 32), (361, 384, 12, 4)])
+def test_k4_pass_then_chase_and_segments_match_pallas_batch(rng, one_cpu_thread, S, P, L, W):
+    """K4 on the card, modelled on the CPU, against the JAX package's
+    viterbi_backtrace_pallas_batch (interpreted), on ragged lengths (1 and 2
+    among them) and a t1m1 with first-max ties at every step: every
+    backpointer (window_backpointers_plain) then the chase from each track's
+    last state; and the chase in segments of L frames with W warm-up frames
+    and exact seams (W = 0 makes the seams re-chase)."""
+    N, T = 8, 48
+    A, t1m1 = _tie_case(rng, S, N, T)
+    log_B, _ = prepare_log_params(A, np.full(S, 1.0 / S))
+    lens = np.array([48, 1, 2, 47, 17, 33, 48, 31], np.int32)
+    last = rng.integers(0, S, N).astype(np.int32)
+    log_B_p, _ = jax_prepare(A, np.full(S, 1.0 / S), pad_to=P)
+    padded = np.full((N, T, P), NEG_PAD, np.float32)
+    padded[:, :, :S] = t1m1
+    st_j = np.asarray(viterbi_backtrace_pallas_batch(
+        jnp.asarray(padded), jnp.asarray(log_B_p), jnp.asarray(last), lens, block_frames=16,
+        interpret=True))
+    bp = TD.window_backpointers_plain(torch.from_numpy(log_B), torch.from_numpy(t1m1), lens).numpy()
+    chased = _chase(bp, last, lens)
+    segmented, fixed = _segmented_chase(bp, t1m1, last, lens, L, W)
+    plain = TD.dense_backtrace(log_B, torch.from_numpy(t1m1), last, lens, segment=L,
+                               warmup=W).numpy()
+    for n, n_len in enumerate(lens):
+        np.testing.assert_array_equal(chased[n, :n_len], st_j[n, :n_len])
+        np.testing.assert_array_equal(segmented[n, :n_len], st_j[n, :n_len])
+        np.testing.assert_array_equal(plain[n, :n_len], st_j[n, :n_len])
+    if W == 0:
+        assert fixed > 0  # the seams were exercised
+
+
+@pytest.mark.parametrize("N,T,resident,L", [
+    (16, 4096, 1056, 64),     # imm 722 at full width: 64 segments of 64 frames a track
+    (16, 4096, 400, 164),     # fewer warps resident than 64 a track: one wave of 25
+    (4, 1500, 1056, 66),      # the imm DecoderSetup's batch: 23 segments (1500 // 64)
+    (1, 32768, 2244, 64),     # one long track: 512 segments of K4_MIN_SEGMENT frames
+    (64, 33, 1056, 33),       # a streaming push: shorter than a segment, one chain
+    (2000, 4096, 1056, 4096), # more tracks than warps resident: one chain a track
+    (1, 63, 1056, 63),        # below K4_MIN_SEGMENT
+    (1, 128, 1056, 64),       # two segments
+])
+def test_k4_segment_length(N, T, resident, L):
+    """k4_segment_length: as many segments as fill the card's resident
+    warps in one wave, none shorter than K4_MIN_SEGMENT frames, one chain
+    where no track has two."""
+    got = TD.k4_segment_length(N, T, resident)
+    assert got == L
+    assert got >= min(T, TD.K4_MIN_SEGMENT)
+    assert N * -(-T // got) <= max(resident, N)
+
+
+def test_dense_backtrace_keywords_on_the_cpu(rng):
+    """On a CPU tensor K4 is its plain version whatever the segment and
+    warm-up asked for; both are validated."""
+    A, t1m1 = _tie_case(rng, 20, 3, 9)
+    log_B, _ = prepare_log_params(A, np.full(20, 1.0 / 20))
+    lens = np.array([9, 1, 4], np.int32)
+    last = np.array([3, 0, 19], np.int32)
+    t1m1 = torch.from_numpy(t1m1)
+    want = TD.dense_backtrace_plain(torch.from_numpy(log_B), t1m1, last, lens)
+    for seg, w in ((None, TD.K4_WARMUP), (1, 0), (4, 2), (100, 7)):
+        assert torch.equal(TD.dense_backtrace(log_B, t1m1, last, lens, segment=seg, warmup=w), want)
+    for seg, w in ((0, 0), (3, -1)):
+        with pytest.raises(ValueError):
+            TD.dense_backtrace(log_B, t1m1, last, lens, segment=seg, warmup=w)

@@ -4,8 +4,13 @@ the decoded states, with ragged lengths and N not a multiple of 8; K1 by
 every layout (one block a track, clusters of 1-8 blocks) and K3 by both
 routes (K7's kernel at 1-4 tracks a cluster, the cluster kernel), also
 over more tracks than the card holds clusters at once; K2 also
-on a tie fixture whose chase meets equal maxima at every step; K5/K6
-under the observation contract (hmm/obs_fused.py::obs_contract); K9
+on a tie fixture whose chase meets equal maxima at every step; K4 by
+its segments (the rule's, one chain, short ones whose seams re-chase) on
+ragged lengths and ties at every step, also over more tracks than one
+grid dimension holds; K5/K6 under the observation contract
+(hmm/obs_fused.py::obs_contract), also on frame counts that are not a
+multiple of the tile, widths of 2-1024 bins, window half-widths of 1 and
+n_bins - 1, unaligned inputs and at every layout; K9
 bit-equal to K5/K6 -> K1, at its own producer and ring layout and at
 others; K7/K8 (the window kernels) exactly, with reset
 rows, at 8- and 16-block cluster sizes and over more windows than one wave
@@ -250,6 +255,72 @@ def _dense_case(rng, S):
     return A, np.full(S, 1.0 / S)
 
 
+def _dense_ties(rng, S, N, T):
+    """(A, t1m1): a dense matrix whose rows are permutations of one row (its
+    log_B takes three values, each equal across rows) and integer t1m1
+    rows, so every step of every chase meets equal maxima."""
+    base = np.repeat(np.float32([1, 2, 3]), -(-S // 3))[:S]
+    base = (base / base.sum()).astype(np.float32)
+    A = np.stack([rng.permutation(base) for _ in range(S)])
+    return A, rng.integers(0, 4, (N, T, S)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [361, 722])
+@pytest.mark.parametrize("data", ["forward", "ties"])
+@pytest.mark.parametrize("segment,warmup", [(None, TD.K4_WARMUP), (10**6, 0), (7, 0), (16, 3),
+                                            (5, 40)])
+def test_cuda_k4_segments_match_plain(cuda, rng, S, data, segment, warmup):
+    """K4 by its rule's segments, as one chain (a segment longer than the
+    tracks), in short segments with no or a short warm-up (the seams
+    re-chase), and with a warm-up longer than the segment; on ragged
+    lengths (1 and 2 among them) of K3's t1m1 and of a t1m1 with first-max
+    ties at every step: the states equal the plain version's below each
+    length, in one counted launch."""
+    lengths = np.array([96, 50, 1, 2, 77, 96, 13, 64], np.int32)
+    N, T = len(lengths), 96
+    if data == "forward":
+        A, pi = _dense_case(rng, S)
+        log_B, log_pi = prepare_log_params(A, pi)
+        t1, t1m1 = TD.dense_forward(log_B, log_pi, _log_obs(rng, N, T, S).to(cuda), lengths)
+        last = torch.argmax(t1, dim=1).to(torch.int32)
+    else:
+        A, t1m1 = _dense_ties(rng, S, N, T)
+        log_B, _ = prepare_log_params(A, np.full(S, 1.0 / S))
+        t1m1 = torch.from_numpy(t1m1).to(cuda)
+        last = torch.from_numpy(rng.integers(0, S, N).astype(np.int32)).to(cuda)
+    fixups = torch.zeros(N, dtype=torch.int32, device=cuda)
+    launches = TD.dense_backtrace.launches
+    st_k = TD.dense_backtrace(log_B, t1m1, last, lengths, segment=segment, warmup=warmup,
+                              fixups=fixups)
+    assert TD.dense_backtrace.launches == launches + 1
+    st_p = TD.dense_backtrace_plain(torch.from_numpy(log_B), t1m1.cpu(), last.cpu(), lengths)
+    torch.cuda.synchronize()
+    for n, L in enumerate(lengths):
+        np.testing.assert_array_equal(st_k[n, :L].cpu().numpy(), st_p[n, :L].numpy())
+    if data == "ties" and warmup == 0 and segment < T:
+        assert int(fixups.sum()) > 0  # the seams re-chased
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segment,warmup", [(None, TD.K4_WARMUP), (2, 0)])
+def test_cuda_k4_more_tracks_than_a_grid_dimension(cuda, rng, segment, warmup):
+    """K4 over 65,537 short ragged tracks with ties at every step, as one
+    chain a track (the rule, with more tracks than warps resident) and in
+    segments of 2 frames (196,611 segment warps, then 65,537 seam warps):
+    equal to its plain version."""
+    S, N, T = 40, 65537, 5
+    A, t1m1 = _dense_ties(rng, S, N, T)
+    log_B, _ = prepare_log_params(A, np.full(S, 1.0 / S))
+    lengths = rng.integers(1, T + 1, N).astype(np.int32)
+    t1m1 = torch.from_numpy(t1m1).to(cuda)
+    last = torch.from_numpy(rng.integers(0, S, N).astype(np.int32)).to(cuda)
+    st_k = TD.dense_backtrace(log_B, t1m1, last, lengths, segment=segment, warmup=warmup)
+    st_p = TD.dense_backtrace_plain(torch.from_numpy(log_B).to(cuda), t1m1, last, lengths)
+    mask = torch.arange(T, device=cuda)[None, :] < torch.from_numpy(lengths).to(cuda)[:, None]
+    assert torch.equal(torch.where(mask, st_k, 0), torch.where(mask, st_p, 0))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [361, 722, 769])
 def test_cuda_k3_routes_match_plain(cuda, rng, S):
@@ -363,6 +434,46 @@ def test_cuda_k5_k6_match_plain(cuda, rng, n_bins, spw, method):
     assert wrapper.launches == launches + 1
     res = OF.obs_contract(got.cpu().numpy(), OF.log_obs_plain(lg, obs).cpu().numpy())
     assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins,spw", [(2, 1), (361, 1), (361, 360), (721, 1), (721, 720),
+                                        (1024, 1), (1024, 1023)])
+@pytest.mark.parametrize("method", ["shaun", "softmax-scaled"])
+def test_cuda_k5_k6_tiles_and_alignment_match_plain(cuda, rng, n_bins, spw, method):
+    """K5/K6 on 3 x 37 frames (not a multiple of the 8-frame tile) at
+    widths of 2 to 1024 bins and window half-widths of 1 and n_bins - 1,
+    read from an aligned input and from a copy whose start is 4 bytes past
+    a 16-byte boundary (with odd n_bins every tile's head and tail are
+    unaligned): the two bit-equal, and under the observation contract
+    against the plain version."""
+    N, T = 3, 37
+    aligned = torch.from_numpy(OF.contract_logits(rng, N, T, n_bins)).to(cuda)
+    buf = torch.empty(N * T * n_bins + 4, dtype=torch.float32, device=cuda)
+    shifted = buf[1:1 + N * T * n_bins].view(N, T, n_bins)
+    shifted.copy_(aligned)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    obs = _obs_cfg(rng, method, n_bins, spw)
+    got = OF.log_obs(aligned, obs)
+    assert torch.equal(OF.log_obs(shifted, obs), got)
+    res = OF.obs_contract(got.cpu().numpy(), OF.log_obs_plain(aligned, obs).cpu().numpy())
+    assert res["ok"], res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(1, 1, 1), (2, 3, 2), (1, 15, 2), (2, 7, 6), (4, 8, 2)])
+@pytest.mark.parametrize("method", ["shaun", "softmax-scaled"])
+def test_cuda_k5_k6_any_layout_bit_equal(cuda, rng, layout, method):
+    """K5/K6 at layouts (blocks an SM, consumer warps, stages) other than
+    obs_layout's give the same bits, at 722 states (spw 16) on 5 x 41
+    frames: one stage, consumers that stride over two tiles, more blocks
+    than an SM holds."""
+    n_bins = 721
+    lg = torch.from_numpy(OF.contract_logits(rng, 5, 41, n_bins)).to(cuda)
+    _, spw, params, log_prior = OF.obs_params(_obs_cfg(rng, method, n_bins, 16), n_bins)
+    prior = None if method == "shaun" else log_prior
+    want = OF._launch(lg, spw, params, prior)
+    assert torch.equal(OF._launch(lg, spw, params, prior, layout=layout), want)
 
 
 # K9's tracks: T=96 a multiple of its rings (32 frames at 361 states, 16 at

@@ -256,3 +256,42 @@ def test_decode_cli_fused_obs_matches_jax_and_default(tmp_path, rng, method):
     for p in paths:
         t = np.load(tmp_path / "t" / f"{p.stem}.npz")
         assert t["voiced"].shape == (np.load(p).shape[0],)
+
+
+
+
+@pytest.mark.parametrize("n_bins,spw,layout", [
+    (360, 5, (2, 15, 6)),     # tonet 361 serving: two blocks an SM, 30 consumers
+    (721, 16, (2, 15, 2)),    # jdc 722 serving
+    (721, 20, (2, 15, 2)),    # imm's spw
+    (2, 1, (2, 15, 6)),       # the smallest input
+    (1024, 1, (1, 15, 4)),    # the widest: one block an SM
+    (1024, 1023, (1, 7, 3)),  # the widest window: fewer consumers' rows fit
+])
+def test_obs_layout_fits_the_sm(n_bins, spw, layout):
+    """K5/K6's layout rule: the most consumer warps an SM, then the most
+    stages, within the H100's shared memory (each block at most 227 KB; the
+    SM's 228 KB less 1 KB reserved a block), at least two stages."""
+    got = OF.obs_layout(n_bins, spw)
+    assert got == layout
+    blocks, consumers, stages = got
+    smem = OF.obs_smem_bytes(n_bins, spw, consumers, stages)
+    assert smem <= OF.SMEM_PER_BLOCK and blocks * (smem + 1024) <= OF.SMEM_PER_SM
+    assert consumers in OF.OBS_CONSUMERS and 2 <= stages <= OF.OBS_MAX_STAGES
+
+
+def test_obs_layout_refuses_a_window_it_cannot_stage():
+    with pytest.raises(ValueError):
+        OF.obs_layout(360, 360)
+    with pytest.raises(ValueError):
+        OF.obs_layout(360, 0)
+
+
+@pytest.mark.parametrize("layout", [(1, 16, 2), (1, 0, 2), (0, 15, 2), (2, 15, 1), (1, 9, 1)])
+def test_obs_kernel_refuses_layouts_it_cannot_run(layout):
+    """K5/K6 refuse, before any launch, more consumer warps than a block
+    takes and fewer stages than a consumer's stride spans (a wait on a
+    stage two phases behind would pass)."""
+    lg = torch.zeros((2, 8, 360), dtype=torch.float32)
+    with pytest.raises(ValueError, match="consumer warps"):
+        OF._launch(lg, 5, OF.shaun_params(0.0), layout=layout)

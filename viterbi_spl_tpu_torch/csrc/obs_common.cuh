@@ -1,6 +1,8 @@
 // The fused observation models, one frame per warp (sm_90a): shared by
 // K5/K6 (csrc/obs.cu) and K9 (csrc/viterbi_banded.cu), so that K9's log
-// observations are the very bits K5/K6 write.
+// observations are the very bits K5/K6 write. Each caller stages a frame's
+// reflect-padded logits in shared memory its own way (K9 gathers them from
+// device memory, K5/K6 from a bulk-copied tile).
 //
 // They replace the per-frame bodies of the TPU kernels,
 // viterbi_spl_tpu/hmm/obs_pallas.py::shaun_log_obs_block (:90) and
@@ -49,19 +51,26 @@ __device__ __forceinline__ float vspl_warp_sum(float v) {
 }
 
 // stage[j] = row[idx[j]] for the frame's n_stage = n_bins + 2 spw
-// reflect-indexed logits (idx in shared memory). The warp reads other
-// lanes' values after a __syncwarp().
-__device__ __forceinline__ void vspl_stage_logits(float* stage, const float* row,
-                                                  const int* idx, int n_stage, int lane) {
-  for (int j = lane; j < n_stage; j += 32) stage[j] = row[idx[j]];
-}
-
-// The same, by cp.async, committed as one group: the warp waits
-// (cp.async.wait_group / wait_all) and __syncwarp()s before reading.
+// reflect-indexed logits (idx in shared memory), by cp.async, committed as
+// one group: the warp waits (cp.async.wait_group / wait_all) and
+// __syncwarp()s before reading.
 __device__ __forceinline__ void vspl_stage_logits_async(float* stage, const float* row,
                                                         const int* idx, int n_stage, int lane) {
   for (int j = lane; j < n_stage; j += 32) vspl_copy_async(stage + j, row + idx[j]);
   vspl_commit_copies();
+}
+
+// This lane's sum of expf(x[b] - gmax) over its peak bins b = lane + 32 k
+// (the set bits k of `peaks`), in ascending k. A lane walks only its set
+// bits, so the warp runs as many exps as its busiest lane has peaks (~1-3
+// a frame at the serving shapes) rather than one per bin slot; the terms
+// and their order are those of a walk over every slot.
+__device__ __forceinline__ float vspl_peak_exp_sum(const float* x, unsigned peaks, float gmax,
+                                                   int lane) {
+  float sum = 0.0f;
+  for (unsigned m = peaks; m != 0u; m &= m - 1u)
+    sum = __fadd_rn(sum, expf(__fsub_rn(x[lane + 32 * (__ffs(m) - 1)], gmax)));
+  return sum;
 }
 
 // One frame's log observations by one warp (all 32 lanes): x_s is the
@@ -73,21 +82,49 @@ __device__ __forceinline__ void vspl_obs_frame(const float* x_s, float* out,
   const int n_bins = a.n_bins;
   const int spw = a.spw;
   // (1) bin b = lane + 32 k is a peak iff x > the max of the spw bins to its
-  // left and x >= the max of the spw bins to its right (reflect-padded)
+  // left and x >= the max of the spw bins to its right (reflect-padded). The
+  // left window of b is the right window of b - spw - 1, so where spw < 32 a
+  // lane reads only its bin's right window and takes its left one from the
+  // lane holding b - spw - 1 (one shuffle: that lane's value at this k, or
+  // at k - 1 where the lane index wraps), half the shared-memory reads.
+  // Maxima are exact in any order, so the peaks are the same.
   unsigned peaks = 0;
   float pmax = VSPL_NEG_PAD;
-  for (int k = 0, b = lane; b < n_bins; ++k, b += 32) {
-    const float* w = x_s + b;  // w[0, spw) left, w[spw] the bin, w(spw, 2 spw] right
-    const float x = w[spw];
-    float left = w[0];
-    float right = w[spw + 1];
-    for (int i = 1; i < spw; ++i) {
-      left = fmaxf(left, w[i]);
-      right = fmaxf(right, w[spw + 1 + i]);
+  // max(w[0], ..., w[spw - 1]) in two chains
+  auto window = [spw](const float* w) {
+    float m0 = w[0], m1 = spw > 1 ? w[1] : w[0];
+#pragma unroll 4
+    for (int i = 2; i + 1 < spw; i += 2) {
+      m0 = fmaxf(m0, w[i]);
+      m1 = fmaxf(m1, w[i + 1]);
     }
-    if (x > left && x >= right) {
-      peaks |= 1u << k;
-      pmax = fmaxf(pmax, x);
+    if (spw > 2 && (spw & 1)) m0 = fmaxf(m0, w[spw - 1]);
+    return fmaxf(m0, m1);
+  };
+  if (spw < 32) {
+    const int src = (lane - spw - 1) & 31;       // the lane holding b - spw - 1
+    const bool wraps = lane + spw + 1 >= 32;     // the lane reading mine wants k - 1's
+    // the right window of "bin" lane - 32 (k = -1), where a lane reads it
+    float r_prev = lane >= 31 - spw ? window(x_s + lane - 32 + spw + 1) : 0.0f;
+    for (int k = 0, b = lane; k < (n_bins + 31) >> 5; ++k, b += 32) {
+      const float* w = x_s + min(b, n_bins - 1);  // w[spw] the bin, w(spw, 2 spw] right
+      const float right = window(w + spw + 1);
+      const float left = __shfl_sync(VSPL_FULL_MASK, wraps ? r_prev : right, src);
+      r_prev = right;
+      const float x = w[spw];
+      if (b < n_bins && x > left && x >= right) {
+        peaks |= 1u << k;
+        pmax = fmaxf(pmax, x);
+      }
+    }
+  } else {
+    for (int k = 0, b = lane; b < n_bins; ++k, b += 32) {
+      const float* w = x_s + b;  // w[0, spw) left, w[spw] the bin, w(spw, 2 spw] right
+      const float x = w[spw];
+      if (x > window(w) && x >= window(w + spw + 1)) {
+        peaks |= 1u << k;
+        pmax = fmaxf(pmax, x);
+      }
     }
   }
   pmax = vspl_warp_max(pmax);  // exact in any order
@@ -101,10 +138,7 @@ __device__ __forceinline__ void vspl_obs_frame(const float* x_s, float* out,
     const float p_voiced = any_peak ? 1.0f / (1.0f + expf(-s)) : 0.0f;
     // (2) the softmax denominator over the peaks (exp only where selected:
     // x - NEG_PAD would overflow it)
-    float denom = 0.0f;
-    for (int k = 0, b = lane; b < n_bins; ++k, b += 32)
-      if ((peaks >> k) & 1u) denom = __fadd_rn(denom, expf(__fsub_rn(x_s[spw + b], gmax)));
-    denom = vspl_warp_sum(denom);
+    const float denom = vspl_warp_sum(vspl_peak_exp_sum(x_s + spw, peaks, gmax, lane));
     // (3) log c = log(p_voiced + TINY) - log(max(denom, 1e-30)), per frame
     const float log_c =
         __fsub_rn(logf(__fadd_rn(p_voiced, FLT_MIN)), logf(fmaxf(denom, 1e-30f)));
@@ -116,10 +150,7 @@ __device__ __forceinline__ void vspl_obs_frame(const float* x_s, float* out,
   } else {
     const float vth = a.p0, prior_uv = a.p1;
     const float gmax = fmaxf(pmax, vth);  // the non-melody logit is always in the set
-    float sum = 0.0f;
-    for (int k = 0, b = lane; b < n_bins; ++k, b += 32)
-      if ((peaks >> k) & 1u) sum = __fadd_rn(sum, expf(__fsub_rn(x_s[spw + b], gmax)));
-    sum = vspl_warp_sum(sum);
+    const float sum = vspl_warp_sum(vspl_peak_exp_sum(x_s + spw, peaks, gmax, lane));
     const float exp_nm = expf(__fsub_rn(vth, gmax));
     const float denom = __fadd_rn(sum, exp_nm);
     const float log_denom = logf(denom);

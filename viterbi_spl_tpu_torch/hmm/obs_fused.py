@@ -1,9 +1,10 @@
 """Fused observation models (counterpart of viterbi_spl_tpu/hmm/obs_pallas.py):
 raw logits in, decoder-ready LOG observations out, in one pass over the
 logits. K5 (shaun) and K6 (softmax, scaled or unscaled) are CUDA C++ in
-csrc/obs.cu, one warp per frame, on the per-frame code of
-csrc/obs_common.cuh that K9 (the banded forward with the observations
-inside) shares; each has its plain PyTorch version here.
+csrc/obs.cu (tiles of whole frames bulk-copied into a shared-memory ring,
+one warp per frame), on the per-frame code of csrc/obs_common.cuh that K9
+(the banded forward with the observations inside) shares; each has its
+plain PyTorch version here.
 
 Layout: logits [N, T, n_bins] f32 -> log observations [N, T, S] f32, the
 voiced bins at [0, n_bins) and the unvoiced state at n_bins — the input of
@@ -24,6 +25,7 @@ lanes, about 2e-4 relative away from the floor, at most log 2 inside it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -40,8 +42,10 @@ LOG_TINY_F32 = float(np.log(np.float32(TINY)))
 SHAUN, SOFTMAX = 1, 2
 
 
+@functools.lru_cache(maxsize=64)
 def reflect_index(n_bins: int, spw: int) -> np.ndarray:
-    """[n_bins + 2 spw] int32: the logit each reflect-padded position reads,
+    """[n_bins + 2 spw] int32 (one array per argument pair, not to be
+    written): the logit each reflect-padded position reads,
     np.pad(arange(n_bins), spw, mode="reflect") (the edge bin is not
     repeated; evaluate.py:199-203 of the JAX package stages the same)."""
     if not 1 <= spw < n_bins:
@@ -158,18 +162,83 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "vspl_shaun_log_obs": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
-    "vspl_softmax_log_obs": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "vspl_shaun_log_obs": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P],
+    "vspl_softmax_log_obs": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
 }
 
+# K5/K6's layout (csrc/obs.cu): a persistent grid of `blocks` blocks an SM,
+# each one producer warp and `consumers` consumer warps over a ring of
+# `stages` tiles of OBS_TILE_FRAMES frames in shared memory.
+OBS_TILE_FRAMES = 8
+OBS_CONSUMERS = (15, 7, 3, 1)
+OBS_MAX_STAGES = 6
+SMEM_PER_SM = 228 * 1024  # H100: 228 KB an SM, 1 KB of it reserved a block
+SMEM_PER_BLOCK = 227 * 1024
 
-def _launch(logits: torch.Tensor, spw: int, params, log_prior=None):
-    """K5 (log_prior None) or K6 on a CUDA tensor."""
+
+def obs_smem_bytes(n_bins: int, spw: int, consumers: int, stages: int) -> int:
+    """Dynamic shared memory of one K5/K6 block (csrc/obs.cu::vspl_obs_smem):
+    full/empty mbarriers, the ring's stages (a tile plus alignment pad, in
+    16-byte units), the index map, the log-prior row and each consumer's
+    reflect-padded row."""
+    n_stage = n_bins + 2 * spw
+    stage_floats = (OBS_TILE_FRAMES * n_bins + 6) // 4 * 4
+    return 16 * stages + 4 * (stages * stage_floats + n_stage + n_bins + consumers * n_stage)
+
+
+@functools.lru_cache(maxsize=64)
+def obs_layout(n_bins: int, spw: int) -> tuple[int, int, int]:
+    """(blocks an SM, consumer warps a block, ring stages) of K5/K6: of one
+    or two blocks an SM, each with a count of OBS_CONSUMERS consumer warps
+    and two to OBS_MAX_STAGES stages that fit the SM's shared memory, the
+    most consumer warps an SM, then the most stages, then two blocks
+    (scripts/gpu_banded_probe.py --parts obsdesigns)."""
+    reflect_index(n_bins, spw)  # validates spw
+    fits = []
+    for blocks in (1, 2):
+        budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks - 1024)
+        for consumers in OBS_CONSUMERS:
+            stages = max((r for r in range(2, OBS_MAX_STAGES + 1)
+                          if obs_smem_bytes(n_bins, spw, consumers, r) <= budget), default=0)
+            if stages:
+                fits.append((blocks * consumers, stages, blocks, consumers))
+    if not fits:
+        raise ValueError(f"no K5/K6 layout fits n_bins={n_bins}, spw={spw}")
+    _, stages, blocks, consumers = max(fits)
+    return blocks, consumers, stages
+
+
+_TABLES: dict = {}
+
+
+def _device_table(table: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A small host table (the reflect index map, a log-prior row) on the
+    card, uploaded once: an upload from pageable memory waits for the
+    stream, which would leave the card idle between back-to-back calls."""
+    key = (str(dev), table.dtype.str, table.tobytes())
+    if key not in _TABLES:
+        if len(_TABLES) >= 64:
+            _TABLES.clear()
+        _TABLES[key] = torch.as_tensor(table, device=dev)
+    return _TABLES[key]
+
+
+def _launch(logits: torch.Tensor, spw: int, params, log_prior=None, layout=None):
+    """K5 (log_prior None) or K6 on a CUDA tensor. layout: (blocks an SM,
+    consumer warps, stages), None for obs_layout's; a consumer's next frame
+    may lie (OBS_TILE_FRAMES - 1 + consumers) // OBS_TILE_FRAMES tiles
+    ahead, and the ring needs at least that many stages."""
     N, T, n_bins = logits.shape
     if n_bins > 1024 or N * T >= 2**31:
         raise ValueError(f"logits {tuple(logits.shape)}: n_bins <= 1024, N * T < 2^31")
+    layout = layout or obs_layout(n_bins, spw)
+    blocks, consumers, stages = layout
+    if blocks < 1 or not 1 <= consumers <= max(OBS_CONSUMERS) or \
+            stages < max(1, (OBS_TILE_FRAMES - 1 + consumers) // OBS_TILE_FRAMES):
+        raise ValueError(f"K5/K6 takes 1-{max(OBS_CONSUMERS)} consumer warps and at least the "
+                         f"stages a consumer's stride spans, not {layout}")
     dev = cuda_lib.cuda_operand(logits, "logits").device
-    idx = torch.as_tensor(reflect_index(n_bins, spw), device=dev)
+    idx = _device_table(reflect_index(n_bins, spw), dev)
     out = torch.empty((N, T, n_bins + 1), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("obs", _SIGNATURES)
     P = cuda_lib.ptr
@@ -177,12 +246,12 @@ def _launch(logits: torch.Tensor, spw: int, params, log_prior=None):
     if log_prior is None:
         name = "vspl_shaun_log_obs"
         rc = lib.vspl_shaun_log_obs(P(logits), P(idx), P(out), N * T, n_bins, spw,
-                                    *map(float, params[:3]), LOG_TINY_F32, stream)
+                                    *map(float, params[:3]), LOG_TINY_F32, *layout, stream)
     else:
         name = "vspl_softmax_log_obs"
-        prior = torch.as_tensor(np.asarray(log_prior, np.float32), device=dev)
+        prior = _device_table(np.asarray(log_prior, np.float32), dev)
         rc = lib.vspl_softmax_log_obs(P(logits), P(idx), P(prior), P(out), N * T, n_bins,
-                                      spw, *map(float, params[:2]), LOG_TINY_F32, stream)
+                                      spw, *map(float, params[:2]), LOG_TINY_F32, *layout, stream)
     cuda_lib.check(lib, rc, name)
     return out
 

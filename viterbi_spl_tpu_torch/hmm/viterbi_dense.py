@@ -127,7 +127,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "vspl_dense_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "vspl_dense_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vspl_dense_backtrace": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vspl_dense_backtrace_residency": [_I, _P],
 }
 _WINDOW_SIGNATURES = {
     "vspl_window_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -229,26 +230,73 @@ def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, route: str | No
     return t1_last, t1m1
 
 
-def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths):
+# K4 chases each track in segments of at least K4_MIN_SEGMENT frames, one
+# warp each, every segment's chase starting K4_WARMUP frames above it
+# (csrc/viterbi_dense.cu; scripts/gpu_dense_probe.py --parts k4seg, PERF.md)
+K4_MIN_SEGMENT = 64
+K4_WARMUP = 32
+
+
+def k4_segment_length(N: int, T: int, resident: int) -> int:
+    """Frames in each of K4's segments for N tracks of at most T frames on a
+    card that holds `resident` of its segment warps at once: as many
+    segments a track as fill the card in one wave, but none shorter than
+    K4_MIN_SEGMENT frames (T itself: one segment, the plain chain)."""
+    K = max(1, min(resident // max(N, 1), T // K4_MIN_SEGMENT))
+    return -(-T // K)
+
+
+_RESIDENT: dict = {}
+
+
+def dense_backtrace_resident(S: int) -> int:
+    """K4's segment warps the card holds at once at S states (SMs times the
+    warps an SM holds, cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    builds the kernel's library)."""
+    if S not in _RESIDENT:
+        lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
+        out = ctypes.c_int(0)
+        cuda_lib.check(lib, lib.vspl_dense_backtrace_residency(S, ctypes.byref(out)),
+                       "K4 residency")
+        _RESIDENT[S] = out.value * torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    return _RESIDENT[S]
+
+
+def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths, segment: int | None = None,
+                    warmup: int = K4_WARMUP, fixups: torch.Tensor | None = None):
     """K4: dense batched reverse chase. Returns states [N, T] int32;
-    entries at or beyond each track's length are unspecified."""
+    entries at or beyond each track's length are unspecified. On the card
+    each track is chased in segments of `segment` frames (None:
+    k4_segment_length's; T or more: one segment, the plain chain), each
+    segment's chase starting `warmup` frames above it, then the seams made
+    exact (two kernels, one counted launch). fixups: an int32 [N] CUDA
+    tensor that receives the frames each track's seams re-chased."""
     N, T, S = t1m1.shape
     lens = cuda_lib.host_lengths(lengths, N, T)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
     if log_B.shape != (S, S):
         raise ValueError(f"log_B must be [{S}, {S}], got {tuple(log_B.shape)}")
+    if (segment is not None and segment < 1) or warmup < 0:
+        raise ValueError(f"segment must be >= 1 and warmup >= 0, got {segment}, {warmup}")
     if t1m1.device.type == "cpu":
         return dense_backtrace_plain(log_B, t1m1, last_states, lens)
     dev = cuda_lib.cuda_operand(t1m1, "t1m1").device
+    if fixups is not None:
+        cuda_lib.cuda_operand(fixups, "fixups", torch.int32)
+        if fixups.shape != (N,):
+            raise ValueError(f"fixups must be [N={N}], got {tuple(fixups.shape)}")
+    L = min(segment or k4_segment_length(N, T, dense_backtrace_resident(S)), T)
     log_B = log_B.to(dev).contiguous()
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
     lens_d = torch.as_tensor(lens, device=dev)
     states = torch.empty((N, T), dtype=torch.int32, device=dev)
+    pred = torch.empty((N, -(-T // L)), dtype=torch.int32, device=dev)
     lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
     P = cuda_lib.ptr
     rc = lib.vspl_dense_backtrace(
-        P(t1m1), P(log_B), P(last), P(lens_d), P(states), N, T, S,
-        cuda_lib.stream_ptr(dev),
+        P(t1m1), P(log_B), P(last), P(lens_d), P(states), P(pred),
+        None if fixups is None else P(fixups), N, T, S, L, warmup, cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(lib, rc, "dense backtrace (K4)")
     dense_backtrace.launches += 1
@@ -412,6 +460,7 @@ def viterbi_decode_batch_logobs(
     if bstruct is not None:
         t1_last, t1m1 = banded_forward(bstruct, log_pi, log_obs, lengths)
     else:
+        log_B = torch.from_numpy(log_B).to(log_obs.device)  # one upload for K3 and K4
         t1_last, t1m1 = dense_forward(log_B, log_pi, log_obs, lengths)
     # first maximum, as np.argmax (documented for torch.argmax)
     last_states = torch.argmax(t1_last[:, :S], dim=1).to(torch.int32)
