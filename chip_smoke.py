@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
 csrc/, holds each against its plain PyTorch version and the NumPy oracle,
-drives the decode service and its fused serving path end to end through
-their entry points, and times the kernels at full width.
+drives the decode service, its fused serving path and the transcription
+path (wav -> CFP -> TONet -> decode) end to end through their entry points,
+and times the kernels at full width.
 
     python3 chip_smoke.py [--baseline DIR]
 
@@ -30,7 +31,8 @@ Phases (one JSON line each):
      and to the fixture's path. K5/K6 at 361 bins (spw 5) and 722 (spw 16 and 20) under the
      observation contract (lanes at log TINY bit-equal, rtol 2e-4 with atol
      1e-6 above -80, at most log 2 in the floor region, the unvoiced lane
-     within rtol 1e-6); K9 at tonet 361 and jdc 722 for all three methods,
+     within rtol 1e-6, plus (p + 1) 2^-24 for the softmax models, p the
+     terms of the frame's softmax denominator); K9 at tonet 361 and jdc 722 for all three methods,
      bit-equal to K5/K6 -> K1, within the observations' summed error of its
      plain version, and K9 -> K2's track 0 against the oracle. K7/K8 over 8
      ragged windows in one launch each, with reset rows 0, -1 and 64, at
@@ -50,6 +52,20 @@ Phases (one JSON line each):
      each path's melody lines equal the default path's, track 0 equals the
      oracle on the port's own fused log observations, and K5, K6 and K9
      hold against their plain versions on those inputs.
+  3e. (after the sequence-parallel path, 3c) the transcription path, its
+     counts set to 0 just before and read just after: 8 synthetic 60 s
+     wavs at 8 kHz (a harmonic tone on a seeded melody walk, plus noise),
+     a full-width TONet checkpoint from a seeded torch init (360 bins,
+     mode "all", the ftanet backbone, attn_dim 2048, 128-frame snippets),
+     tonet artifacts from seeded note tracks; after a warm-up on track 0,
+     cli.transcribe.main with --batch 16 --method shaun (K1/K2) and with --fused-obs (K5 -> K1/K2),
+     then the card's logits through viterbi_decode_batch_fused_obs (K9 ->
+     K2). Then: the three give the same states, track 0 (6,000 frames)
+     equals the oracle on the card's logits, ms per stage (wav load, CFP,
+     model, observation + decode) and frames/s, the TF32 settings; the CFP
+     features and the model's logits on the card against the CPU's
+     (FEATURE_TOL, LOGIT_TOL) on a 15.36 s excerpt for TONet and one 20 s
+     track for ftanet, msnet and jdc at full width.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
      with K4's segment length and the frames its seams re-chased); with
@@ -463,10 +479,12 @@ def obs_cfg(method, spw, threshold, init_probs) -> dict:
     return dict(method=method, spw=spw, threshold_logit=threshold, init_probs=init_probs)
 
 
-def check_obs(got, want, label) -> float:
+def check_obs(got, want, obs, label) -> float:
     """K5/K6 output against the plain version under the observation
-    contract; returns the largest absolute difference."""
-    res = OF.obs_contract(got.cpu().numpy(), want.cpu().numpy())
+    contract of the obs dict's model; returns the largest absolute
+    difference."""
+    res = OF.obs_contract(got.cpu().numpy(), want.cpu().numpy(),
+                          softmax=obs["method"] != "shaun")
     emit({"phase": "obs_equality", "shape": label, **res})
     check(res["ok"], f"{label}: the observation kernel meets its contract against its plain version")
     return res["max_abs_err"]
@@ -521,7 +539,7 @@ def phase_obs_equality(dev, errs) -> None:
         pri = rng.random(n_bins + 1).astype(np.float32) + 0.1
         for method in METHODS:
             obs = obs_cfg(method, spw, 0.3, pri / pri.sum())
-            err = check_obs(OF.log_obs(lg, obs), OF.log_obs_plain(lg, obs),
+            err = check_obs(OF.log_obs(lg, obs), OF.log_obs_plain(lg, obs), obs,
                             f"{method} {n_bins + 1} spw {spw} N={N} T={T}")
             k = "K5" if method == "shaun" else "K6"
             errs[k] = max(errs[k], err)
@@ -619,7 +637,7 @@ def phase_fused_path(dev, errs, ctx) -> dict:
     # counts are read)
     for method in METHODS:
         obs = ctx["cli_setups"][method].obs_config()
-        err = check_obs(OF.log_obs(batch, obs), OF.log_obs_plain(batch, obs),
+        err = check_obs(OF.log_obs(batch, obs), OF.log_obs_plain(batch, obs), obs,
                         f"main path tonet 361 {method}")
         k = "K5" if method == "shaun" else "K6"
         errs[k] = max(errs[k], err)
@@ -633,7 +651,7 @@ def phase_fused_path(dev, errs, ctx) -> dict:
     imm_batch = torch.from_numpy(imm_batch).to(dev)
     obs = imm_setup.obs_config()
     errs["K5"] = max(errs["K5"], check_obs(OF.log_obs(imm_batch, obs),
-                                           OF.log_obs_plain(imm_batch, obs),
+                                           OF.log_obs_plain(imm_batch, obs), obs,
                                            "main path imm 722 shaun spw 20"))
     return launches
 
@@ -824,6 +842,189 @@ def phase_seq_path(dev, errs, ctx) -> tuple[dict, dict]:
                          *compare_windows(A, pi, log_obs[None], np.array([SEQ_T], np.int32),
                                           np.zeros(1, np.int32)))
     return launches, dict(log_obs=log_obs, halo=halo, mesh=seq_mesh, A=A, pi=pi)
+
+
+# ----------------------------------------------------------------------
+# The transcription path: wav -> CFP -> TONet -> observations -> decode.
+# ----------------------------------------------------------------------
+
+TRANSCRIBE_TRACKS, TRANSCRIBE_SECONDS, TRANSCRIBE_SR = 8, 60, 8000
+EXCERPT_SECONDS, SHORT_SECONDS = 15.36, 20.0
+VOICING_TH = 0.01
+# card against CPU, on the same input (features: the same wav; logits: the
+# card's features): max |diff| over the CPU's largest |value|, and for the
+# logits also the relative L2 error. The CFP chain runs in float64 on both
+# (frontend/cfp.py), so its float32 features agree to rounding. msnet's
+# argmax pool reroutes a value where a near-tie flips between two sum
+# orders (tests/test_precision.py says as much for bfloat16), so its
+# largest difference is loose and its L2 error tight.
+FEATURE_TOL = 1e-5
+LOGIT_TOL = {"tonet": (1e-4, 5e-5), "ftanet": (1e-4, 5e-5), "msnet": (5e-2, 1e-3),
+             "jdc": (1e-4, 5e-5)}
+
+
+def write_melody_wav(path: Path, rng, seconds: float, sr: int = TRANSCRIBE_SR) -> None:
+    """A harmonic tone following a seeded melody walk (a note every 0.25 s,
+    MIDI 48-76, a fifth of the notes silent) plus noise, PCM16."""
+    n_notes = int(np.ceil(seconds / 0.25))
+    walk = np.clip(62 + np.cumsum(rng.integers(-2, 3, n_notes)), 48, 76).astype(np.float64)
+    voiced = rng.random(n_notes) > 0.2
+    per = int(0.25 * sr)
+    f0 = np.repeat(440.0 * 2.0 ** ((walk - 69) / 12), per)[: int(seconds * sr)]
+    amp = np.repeat(voiced.astype(np.float64), per)[: len(f0)]
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = amp * sum(a * np.sin(k * phase) for k, a in ((1, 0.5), (2, 0.25), (3, 0.15), (4, 0.08)))
+    x = x + 0.03 * rng.normal(size=len(x))
+    from scipy.io import wavfile
+
+    wavfile.write(path, sr, (np.clip(x, -1, 1) * 32767 * 0.8).astype(np.int16))
+
+
+def card_against_cpu(dev, family: str, wav: Path, model_kwargs: dict, seed: int) -> dict:
+    """One family's front-end on the card against the CPU's on one wav, and
+    its model (seeded torch init, full width) on the card against the CPU
+    on the card's features."""
+    from viterbi_spl_tpu_torch.apps.common import init_model, model_logits_for_dataset
+    from viterbi_spl_tpu_torch.cli import transcribe as TR
+    from viterbi_spl_tpu_torch.io.wav import load_wav
+
+    samples = load_wav(wav, sr=TR.FAMILY_SR[family])[0]
+    f_card = TR.features_from_samples(family, samples, device=dev)
+    f_cpu = TR.features_from_samples(family, samples, device="cpu")
+    f_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    cfg = importlib.import_module(f"viterbi_spl_tpu_torch.apps.{family}").config()
+    model, _, _ = init_model(cfg, model_kwargs, seed=seed)
+    ds = TR._WavDataset(["x"], [f_card])
+    lg_cpu = model_logits_for_dataset(cfg, model, ds)[0]
+    t0 = time.perf_counter()
+    lg_card = model_logits_for_dataset(cfg, model.to(dev), ds)[0]
+    card_s = time.perf_counter() - t0
+    l_err = float(np.abs(lg_card - lg_cpu).max() / np.abs(lg_cpu).max())
+    rec = {"phase": "transcribe_card_vs_cpu", "family": family, "frames": len(f_card),
+           "feature_shape": list(f_card.shape[1:]), "feature_max_abs_err_rel": f_err,
+           "feature_tol": FEATURE_TOL, "logit_max_abs_err_rel": l_err,
+           "logit_rel_l2": float(np.linalg.norm(lg_card - lg_cpu) / np.linalg.norm(lg_cpu)),
+           "logit_tol": LOGIT_TOL[family], "card_model_seconds": card_s,
+           "finite": bool(np.isfinite(lg_card).all())}
+    emit(rec)
+    check(np.isfinite(f_card).all() and rec["finite"], f"{family}: finite features and logits")
+    check(f_err <= FEATURE_TOL, f"{family}: card features within {FEATURE_TOL} of the CPU's")
+    check(l_err <= LOGIT_TOL[family][0] and rec["logit_rel_l2"] <= LOGIT_TOL[family][1],
+          f"{family}: card logits within {LOGIT_TOL[family]} of the CPU's")
+    return rec
+
+
+def phase_transcribe(dev, tmp: Path) -> dict:
+    """The transcription path through cli.transcribe.main on the card: 8
+    synthetic 60 s wavs at 8 kHz, a full-width TONet checkpoint (seeded
+    torch init: 360 bins, mode "all", the ftanet backbone, attn_dim 2048,
+    128-frame snippets), tonet HMM artifacts from seeded note tracks. After
+    a warm-up on track 0, with the counts set to 0 just before and read
+    just after: --batch 16
+    --method shaun (K1/K2), then --fused-obs (K5 -> K1/K2), then the card's
+    logits through the fused decode API (K9 -> K2). Then, outside the
+    counts: track 0's states equal the oracle on the card's logits; the
+    CFP features and the model's logits on the card within the stated
+    tolerance of the CPU's (a 15.36 s excerpt of track 0, 12 TONet
+    chunks); one full-width forward of ftanet, msnet and jdc on a 20 s
+    track against the CPU. Returns the launches and the stage times."""
+    from viterbi_spl_tpu_torch.apps import tonet as tonet_app
+    from viterbi_spl_tpu_torch.apps.common import float32_math, init_model
+    from viterbi_spl_tpu_torch.cli import transcribe as TR
+    from viterbi_spl_tpu_torch.harness.train import TrainState, save_checkpoint
+
+    rng = np.random.default_rng(8)
+    spec = family_spec("tonet")
+    wavs = []
+    for i in range(TRANSCRIBE_TRACKS):
+        wavs.append(tmp / f"song{i}.wav")
+        write_melody_wav(wavs[-1], rng, TRANSCRIBE_SECONDS)
+    excerpt, short = tmp / "excerpt.wav", tmp / "short.wav"
+    write_melody_wav(excerpt, np.random.default_rng(80), EXCERPT_SECONDS)
+    write_melody_wav(short, np.random.default_rng(81), SHORT_SECONDS)
+    _, params, batch_stats = init_model(tonet_app.config(), seed=11)
+    ckpt = tmp / "tonet.pt"
+    # the random model's posteriors are flat: a low validated threshold keeps
+    # its paths voiced, so that the decode walks the pitch bins
+    save_checkpoint(ckpt, TrainState(params, batch_stats, voicing_threshold=VOICING_TH), "tonet")
+    notes = []
+    for _ in range(4):
+        walk = 60.0 + np.cumsum(rng.integers(-2, 3, 4000)) / 5.0
+        notes.append(np.where(np.repeat(rng.random(200) > 0.25, 20), np.clip(walk, 40, 90), 0.0))
+    build_hmm_artifacts(quantize_tracks_for_family(notes, spec), spec, tmp / "hmm_tr")
+    common = [str(w) for w in wavs] + ["--family", "tonet", "--batch", "16", "--ckpt", str(ckpt),
+                                       "--artifacts", str(tmp / "hmm_tr"), "--format", "npz",
+                                       "--device", str(dev)]
+
+    # a warm-up on track 0 (cuFFT plans, cuDNN's choices, the kernels'
+    # first launches), before the counts are set to 0
+    TR.main(common[:1] + common[TRANSCRIBE_TRACKS:] + ["--out", str(tmp / "warm")])
+    for wrapper in VD.KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    stages, fused_stages = {}, {}
+    t0 = time.perf_counter()
+    recs = run_counted({"K1", "K2"}, "transcribe --method shaun", TR.main,
+                       common + ["--out", str(tmp / "tr"), "--method", "shaun"], stages=stages)
+    wall_s = time.perf_counter() - t0
+    fused = run_counted({"K5", "K1", "K2"}, "transcribe --fused-obs", TR.main,
+                        common + ["--out", str(tmp / "tr_fused"), "--fused-obs"],
+                        stages=fused_stages)
+    logits, _ = TR.nn_logits_from_wavs("tonet", wavs, str(ckpt), device=dev)
+    setup = cli_decode.build_setup(argparse.Namespace(
+        family="tonet", artifacts=str(tmp / "hmm_tr"), threshold=VOICING_TH, method="shaun",
+        device=dev))
+    lengths = np.array([lg.shape[0] for lg in logits], np.int32)
+    staged = np.zeros((len(lengths), lengths.max(), spec.n_bins), np.float32)
+    for i, lg in enumerate(logits):
+        staged[i, : lengths[i]] = lg
+    api_states = run_counted(
+        {"K9", "K2"}, "the transcribe logits through viterbi_decode_batch_fused_obs",
+        VD.viterbi_decode_batch_fused_obs, transition_matrix=setup.transition_matrix,
+        prob_init=setup.init_probs, logits=torch.from_numpy(staged).to(dev), lengths=lengths,
+        obs=setup.obs_config()).cpu().numpy()
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K5", "K9")),
+          f"the transcription path ran K1, K2, K5 and K9: {launches}")
+
+    # what came out (these launches come after the counts and do not count)
+    frames = int(lengths.sum())
+    check(len(recs) == len(fused) == TRANSCRIBE_TRACKS
+          and all(len(r["voiced"]) == L for r, L in zip(recs, lengths)),
+          "one melody line a track, one entry a frame")
+    check(frames == TRANSCRIBE_TRACKS * TRANSCRIBE_SECONDS * TRANSCRIBE_SR // 80,
+          f"{frames} frames: 6000 a 60 s track at the 10 ms hop")
+    for r, f, st, L in zip(recs, fused, api_states, lengths):
+        states = np.where(r["voiced"], r["bins"], spec.n_bins)
+        check(np.array_equal(states, np.where(f["voiced"], f["bins"], spec.n_bins))
+              and np.array_equal(states, st[:L]),
+              f"{r['name']}: --fused-obs and the fused decode API give the CLI's states")
+    log_obs = log_obs_fn(setup.observation_probs(logits[0])).cpu().numpy()
+    log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
+    check(np.array_equal(np.where(recs[0]["voiced"], recs[0]["bins"], spec.n_bins),
+                         viterbi_oracle_log(log_B, log_pi, log_obs)),
+          "transcribe track 0 (6000 frames) equals the oracle on the card's logits")
+    check(all(np.isfinite(lg).all() for lg in logits), "finite logits")
+
+    with float32_math(dev):
+        tf32_in_model = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    rec = {"phase": "transcribe", "tracks": TRANSCRIBE_TRACKS, "seconds_each": TRANSCRIBE_SECONDS,
+           "frames": frames, "batch": 16, "model": "tonet all/ftanet attn_dim 2048",
+           "stage_ms": {k: 1e3 * v for k, v in stages.items()},
+           "stage_ms_fused_obs": {k: 1e3 * v for k, v in fused_stages.items()},
+           "wall_ms": 1e3 * wall_s, "frames_per_s": frames / wall_s,
+           "frames_per_s_fused_obs": frames / sum(fused_stages.values()),
+           "voiced_share": float(np.mean(np.concatenate([r["voiced"] for r in recs]))),
+           "tf32_default": {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+           "tf32_in_model_forward": tf32_in_model, "launches": launches}
+    emit(rec)
+    check(not any(tf32_in_model.values()), "the model forward runs without TF32")
+
+    card_against_cpu(dev, "tonet", excerpt, {}, seed=11)
+    for family, seed in (("ftanet", 12), ("msnet", 13), ("jdc", 14)):
+        card_against_cpu(dev, family, short, {}, seed)
+    return rec
 
 
 def phase_streaming(dev) -> dict:
@@ -1461,6 +1662,7 @@ def main(argv=None) -> int:
         launches, ctx = phase_main_path(dev, errs, Path(tmp))
         fused_launches = phase_fused_path(dev, errs, ctx)
         seq_launches, seq = phase_seq_path(dev, errs, ctx)
+        transcribe = phase_transcribe(dev, Path(tmp))
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
@@ -1488,6 +1690,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[k], "max_abs_err": errs[k],
             **entry(main_rec), "library_ms": None,
             "launches_on_fused_path": fused_launches[k],
+            "launches_on_transcribe_path": transcribe["launches"][k],
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()

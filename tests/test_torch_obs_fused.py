@@ -16,7 +16,12 @@ adds):
   sigmoid (shaun) and the denominators' summation order (softmax) differ
   between XLA and PyTorch by an ulp or two, which log(1 - p + TINY)
   amplifies where p is near 1; measured at most 1.6e-7 relative on these
-  inputs, so the bound stays 1e-6.
+  inputs, so the bound stays 1e-6. For the softmax models the contract
+  adds (p + 1) 2^-24 absolute, p the terms of the frame's denominator:
+  a float32 sum of p terms in another order is that far off in its log,
+  which a relative bound misses where the log is near 0 (the CUDA
+  kernel's 0.0817 against 0.0817001 at 108 terms on an H100:
+  scripts/gpu_obs_unvoiced_probe.py).
 Two XLA-on-CPU artefacts are kept out of the shared inputs and pinned by
 their own test: where p_voiced rounds to 1, the interpreted kernel's
 unvoiced lane is -inf (XLA folds (1 - p) + TINY into (1 + TINY) - p), and
@@ -104,7 +109,7 @@ def test_plain_obs_matches_pallas_kernels(rng, n_bins, spw, method):
     want = want[..., : n_bins + 1]
     assert got.shape == (N, T, n_bins + 1) and got.dtype == torch.float32
     got = got.numpy()
-    res = OF.obs_contract(got, want)
+    res = OF.obs_contract(got, want, softmax=method != "shaun")
     assert res["ok"], res
     np.testing.assert_array_equal(got[1, 5], np.append(np.full(n_bins, LOG_TINY), got[1, 5, -1]))
     # the obs-dict dispatch and the CPU wrapper are the plain version

@@ -1,6 +1,5 @@
 """Offline HMM-parameter pipeline: validation statistics -> .dat artifacts
-(counterpart of viterbi_spl_tpu/cli/hmm_artifacts.py, minus its `main`,
-which needs the label pipeline of a later slice).
+(counterpart of viterbi_spl_tpu/cli/hmm_artifacts.py).
 
 Runnable equivalent of the reference's three-stage offline pipeline
 (SURVEY.md §3.5):
@@ -19,7 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..families import FamilySpec
+from ..families import DCNET_SWITCH, FamilySpec, family_spec
 from ..hmm import params as P
 from ..io import load_array, save_array
 
@@ -89,3 +88,35 @@ def quantize_tracks_for_family(
         )
         for notes in note_tracks
     ]
+
+
+def main(argv=None):
+    import argparse
+
+    from ..data.labels import resample_notes_to_10ms
+
+    ap = argparse.ArgumentParser(
+        description="Build HMM decoding artifacts from note-label .npy files"
+    )
+    ap.add_argument("--family", required=True)
+    ap.add_argument("--notes", nargs="+", required=True,
+                    help=".npy files of per-track MIDI notes on the 256-hop grid")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--dcnet-switch", action="store_true",
+                    help="use the hard-coded dcnet switch matrix")
+    args = ap.parse_args(argv)
+
+    spec = family_spec(args.family)
+    tracks = [np.load(f) for f in args.notes]
+    if abs(spec.hop_seconds - 0.01) < 1e-9:
+        tracks = [resample_notes_to_10ms(t) for t in tracks]
+    q = quantize_tracks_for_family(tracks, spec)
+    build_hmm_artifacts(
+        q, spec, args.out,
+        switch_override=DCNET_SWITCH if args.dcnet_switch else None,
+    )
+    print(f"artifacts written to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

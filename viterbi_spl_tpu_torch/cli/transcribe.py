@@ -1,0 +1,216 @@
+"""End-to-end transcription: wav files in, melody lines out (counterpart of
+viterbi_spl_tpu/cli/transcribe.py).
+
+The top of the serving stack. `cli/decode.py` starts from saved
+posteriorgram files; this entry point owns the whole chain for one or more
+wav files:
+
+    wav -> family front-end (CFP / STFT) on the GPU
+        -> acoustic model restored from the port's checkpoint file
+        -> observation model + batched Viterbi decode (the CUDA kernels)
+        -> MIREX melody lines (or .npz decode vectors)
+
+    python -m viterbi_spl_tpu_torch.cli.transcribe song.wav \
+        --family tonet --ckpt tonet.pt --artifacts hmm_dir --out melodies/
+
+The checkpoint is the port's own file (harness/train.py);
+scripts/orbax_to_torch.py writes one from a JAX package checkpoint. The
+voicing threshold defaults to the checkpoint's validated value; --threshold
+overrides it. It runs on CUDA; `--device cpu` runs the same chain with the
+kernels' plain PyTorch versions. The 44.1 kHz NSGT family dcnet, the
+checkpoint-free imm and its --separate pass come with the next slice of the
+port, and are refused here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..harness.evaluate import ALLOWED_VITERBI_METHODS
+from ..utils import resolve_device
+from .decode import build_setup as decode_build_setup
+from .decode import decode_named_logits
+
+# wav sample rate each family's front-end expects (the apps' builders)
+FAMILY_SR = {
+    "dcnet": 44100,  # NSGT on 44.1 kHz (dcnet/nsgt.py)
+    "msnet": 44100,  # CFP msnet config (msnet/hsieh_m2m3.py)
+    "ftanet": 8000,
+    "jdc": 8000,
+    "tonet": 8000,
+}
+
+NOT_YET = ("dcnet", "imm")
+SLICE_9 = ("is not ported yet: dcnet (the NSGT front-end) and imm (the NMF model, "
+           "with --separate) come in slice 9 of the port")
+
+
+def features_from_samples(family: str, samples: np.ndarray, device=None) -> np.ndarray:
+    """samples (float32, at FAMILY_SR[family]) -> the family's model input,
+    computed on `device` (CUDA by default). One-to-one with the apps'
+    real-data spec_fns, so a transcribed wav sees the training feature
+    chain."""
+    if family in ("msnet", "ftanet", "tonet"):
+        from ..frontend import CFP, FTANET_CFP, MSNET_CFP, TONET_CFP
+
+        cfp_cfg = {"msnet": MSNET_CFP, "ftanet": FTANET_CFP, "tonet": TONET_CFP}[family]
+        feat = CFP(cfp_cfg, device=device).features(samples)
+        if family == "tonet":
+            # tonet models take [T, 3, 360] (tonet/main_shaun.py layout)
+            feat = np.ascontiguousarray(feat.transpose(0, 2, 1))
+        return feat
+    if family == "jdc":
+        from ..frontend import jdc_spectrogram
+
+        return jdc_spectrogram(samples, device=device)
+    if family in NOT_YET:
+        raise ValueError(f"family {family} {SLICE_9}")
+    raise ValueError(f"unknown family {family!r}")
+
+
+class _WavDataset:
+    """Minimal dataset view over in-memory features (no labels:
+    transcription has none), enough for model_logits_for_dataset."""
+
+    def __init__(self, names, specs):
+        from ..data.registry import Track
+
+        empty = np.zeros(0, np.float32)
+        self.track_ids = tuple(names)
+        self.tracks = [
+            Track(track_id=n, spectrogram=np.asarray(s, np.float32),
+                  notes=np.zeros(len(s), np.float32), original_times=empty,
+                  original_freqs=empty)
+            for n, s in zip(names, specs)
+        ]
+
+    def __len__(self):
+        return len(self.tracks)
+
+    def __getitem__(self, idx):
+        return self.tracks[idx]
+
+
+def nn_logits_from_wavs(family: str, paths, ckpt: str, bf16: bool = False, device=None,
+                        stages: dict | None = None):
+    """wav paths -> (per-track [T, n_bins] logits, restored TrainState).
+    `stages` (when given) receives the seconds of each stage: wav load,
+    front-end, model load (the checkpoint read and put on the device) and
+    model (the forward)."""
+    from ..apps.common import load_state, model_logits_for_dataset
+    from ..harness.train import restore_checkpoint
+    from ..io.wav import load_wav
+
+    dev = resolve_device(device)
+    cfg = importlib.import_module(f"viterbi_spl_tpu_torch.apps.{family}").config()
+    if bf16:
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    stages = {} if stages is None else stages
+
+    t0 = time.perf_counter()
+    samples = [load_wav(p, sr=FAMILY_SR[family])[0] for p in paths]
+    t1 = time.perf_counter()
+    specs = [features_from_samples(family, s, device=dev) for s in samples]
+    t2 = time.perf_counter()
+    state, ck_family, model_kwargs = restore_checkpoint(ckpt)
+    if ck_family != family:
+        raise ValueError(f"{ckpt} holds a {ck_family} model, not {family}")
+    # built without drawing params (the checkpoint overwrites them all)
+    with torch.device("meta"):
+        model = cfg.make_model(dtype=cfg.compute_dtype, **model_kwargs)
+    model = model.to_empty(device=dev).eval()
+    load_state(model, state)
+    t3 = time.perf_counter()
+    logits = model_logits_for_dataset(cfg, model, _WavDataset([p.stem for p in paths], specs))
+    t4 = time.perf_counter()
+    stages.update(wav_load=t1 - t0, front_end=t2 - t1, model_load=t3 - t2, model=t4 - t3)
+    return logits, state
+
+
+def main(argv=None, stages: dict | None = None):
+    """The CLI. `stages` (when given) receives the seconds of each stage:
+    wav load, front-end, model load, model, and observation + decode."""
+    ap = argparse.ArgumentParser(
+        description="End-to-end melody transcription (wav -> melody lines)"
+    )
+    ap.add_argument("inputs", nargs="+", help="wav files")
+    ap.add_argument("--family", required=True, choices=sorted(FAMILY_SR) + ["imm"])
+    ap.add_argument("--ckpt", default=None,
+                    help="the port's checkpoint file (scripts/orbax_to_torch.py "
+                         "makes one from a JAX package checkpoint)")
+    ap.add_argument("--artifacts", default=None,
+                    help="dir with viterbi_transition_matrix.dat + "
+                         "viterbi_init_probs.dat")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--method", default="shaun",
+                    choices=list(ALLOWED_VITERBI_METHODS))
+    ap.add_argument("--threshold", type=float, default=None,
+                    help="voicing threshold; defaults to the checkpoint's "
+                         "validated value")
+    ap.add_argument("--batch", type=int, default=16,
+                    help="tracks decoded together per kernel launch")
+    ap.add_argument("--format", default="txt", choices=["txt", "npz"])
+    ap.add_argument("--fused-obs", action="store_true",
+                    help="fused observation kernel serving path (K5/K6)")
+    ap.add_argument("--mesh", default=None,
+                    help="split the decode batch over a device mesh, e.g. data=8")
+    ap.add_argument("--bf16", action="store_true",
+                    help="run the model's convs/denses/LSTMs in bfloat16")
+    ap.add_argument("--debug", action="store_true",
+                    help="imm only: tiny NMF configuration (imm comes in slice 9)")
+    ap.add_argument("--separate", action="store_true",
+                    help="imm only: stereo source separation (comes in slice 9)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the "
+                         "kernels' plain PyTorch versions)")
+    args = ap.parse_args(argv)
+
+    paths = [Path(p) for p in args.inputs]
+    missing = [p for p in paths if not p.exists()]
+    if missing:
+        sys.exit(f"missing input files: {missing}")
+    names = [p.stem for p in paths]
+
+    if args.separate or args.family in NOT_YET:
+        what = "--separate" if args.separate else f"--family {args.family}"
+        sys.exit(f"{what} {SLICE_9}")
+    if args.ckpt is None:
+        sys.exit(f"--ckpt is required for family {args.family}")
+    if args.artifacts is None:
+        sys.exit(f"--artifacts is required for family {args.family}")
+
+    stages = {} if stages is None else stages
+    logits_list, state = nn_logits_from_wavs(
+        args.family, paths, args.ckpt, bf16=args.bf16, device=args.device, stages=stages
+    )
+    threshold = args.threshold if args.threshold is not None else float(state.voicing_threshold)
+    setup = decode_build_setup(
+        argparse.Namespace(
+            family=args.family, artifacts=args.artifacts, threshold=threshold,
+            method=args.method, mesh=args.mesh, fused_obs=args.fused_obs,
+            device=args.device,
+        )
+    )
+    t0 = time.perf_counter()
+    results = decode_named_logits(setup, names, logits_list, args)
+    stages["decode"] = time.perf_counter() - t0
+    voiced_frames = sum(int(r["voiced"].sum()) for r in results)
+    total = sum(len(r["voiced"]) for r in results)
+    print(
+        f"transcribed {len(results)} tracks, {total} frames "
+        f"({voiced_frames} voiced) -> {args.out}; seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+    )
+    return results
+
+
+if __name__ == "__main__":
+    main()

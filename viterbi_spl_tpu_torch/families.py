@@ -13,9 +13,11 @@ One place for the constants each reference script hard-codes (SURVEY.md §0,
 | tonet  | 360  | 80/8000 (10ms) | 5   | 35.92-rule(10ms) | 2     | 0.32  |
 | imm    | 721  | 256/44100      | 20  | analytic         | —     | 2.442347 (log-energy) |
 
-The note grids are own copies of the JAX package's (models/targets.py,
-frontend/cfp.py, models/imm.py), reduced to what the decoder needs: the
-CFP centre frequencies and the imm f0 grid, not the front-ends themselves.
+The note grids come from models/targets.py, as in the JAX package; the
+imm f0 grid is an own copy of models/imm.py's until imm is ported. The dcnet
+switch matrix is the hard-coded one from
+dcnet/viterbi_transition_matrix.py:78-79; other families count it from the
+validation split.
 """
 
 from __future__ import annotations
@@ -26,27 +28,12 @@ import numpy as np
 
 from .hmm.params import single_side_d_max
 from .metrics.mel_eval import hz_to_midi
-
-
-def note_grid(note_min: float, n_bins: int, bins_per_semitone: float) -> np.ndarray:
-    return (note_min + np.arange(n_bins) / bins_per_semitone).astype(np.float32)
-
-
-def cfp_central_freqs(fmin: float, fmax: float, bins_per_oct: int = 60) -> np.ndarray:
-    """CFPConfig.central_freqs: geometric grid from fmin below fmax
-    (frontend/cfp.py:52-59)."""
-    fac = 2.0 ** (1.0 / bins_per_oct)
-    freqs = []
-    f = float(fmin)
-    while f < fmax:
-        freqs.append(f)
-        f *= fac
-    return np.asarray(freqs)
-
-
-def cfp_note_range(central_freqs: np.ndarray) -> np.ndarray:
-    """hz_to_midi of central_freqs[1:] (msnet/hsieh_m2m3.py:185-203)."""
-    return hz_to_midi(np.asarray(central_freqs)[1:]).astype(np.float32)
+from .models.targets import (
+    DCNET_NOTE_RANGE,
+    JDC_NOTE_RANGE,
+    _msnet_note_range,
+    _tonet_note_range,
+)
 
 
 def imm_f0s(fmin: float = 100.0, fmax: float = 800.0, bins_per_note: int = 20):
@@ -56,16 +43,10 @@ def imm_f0s(fmin: float = 100.0, fmax: float = 800.0, bins_per_note: int = 20):
     return fmin * 2.0 ** (np.arange(U) / float(12 * bins_per_note))
 
 
-DCNET_NOTE_RANGE = note_grid(23.6, 320, 5)
-JDC_NOTE_RANGE = note_grid(38.0, 721, 16)
-
-
-def _msnet_note_range() -> np.ndarray:
-    return cfp_note_range(cfp_central_freqs(31, 1250))
-
-
-def _tonet_note_range() -> np.ndarray:
-    return cfp_note_range(cfp_central_freqs(32, 2050))
+DCNET_SWITCH = np.array(
+    [[0.98713454, 0.01286546], [0.01002112, 0.98997888]], np.float64
+)
+JDC_SWITCH = np.array([[0.9779, 0.0221], [0.0172, 0.9828]], np.float64)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -304,22 +304,34 @@ def log_obs_plain(logits: torch.Tensor, obs: dict) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 
-def obs_contract(got: np.ndarray, want: np.ndarray) -> dict:
+def obs_contract(got: np.ndarray, want: np.ndarray, softmax: bool = False) -> dict:
     """Log observations `got` [..., S] against `want` (the plain version,
     or the JAX package's kernel) under the contract of obs_pallas.py:12-27:
     lanes at log TINY bit-equal; above -80 within 1e-6 + 2e-4 |want|; in
     the floor region at most 0.70 (log 2) apart and not below log TINY; the
-    unvoiced lane within 1e-6 |want|. Returns each clause's verdict, "ok"
+    unvoiced lane within 1e-6 |want|, and for the softmax models (`softmax`)
+    within 1e-6 |want| + (p + 1) 2^-24, p the frame's terms in the softmax
+    denominator (its voiced lanes of `want` above log TINY, plus the
+    non-melody term). A float32 sum of p positive terms in any order is
+    within a relative (p - 1) 2^-24 of another order's, which is an absolute
+    (p - 1) 2^-24 on its log; that is the contract's clause (a), reduction
+    order in the peak-softmax denominator. Shaun's unvoiced lane,
+    log(1 - p_v + TINY), has no sum. Returns each clause's verdict, "ok"
     when all hold, and the largest differences."""
     n_bins = want.shape[-1] - 1
     away, zero = want > -80.0, want <= LOG_TINY_F32 + 1e-3
     diff = np.abs(got - want)
+    uv_tol = 1e-6 * np.abs(want[..., n_bins])
+    if softmax:
+        terms = (want[..., :n_bins] > LOG_TINY_F32 + 1e-3).sum(-1) + 1
+        uv_tol = uv_tol + (terms + 1) * 2.0 ** -24
     res = {
         "log_tiny_lanes_equal": bool(np.array_equal(got[zero], want[zero])),
         "above_-80_within_rtol_2e-4": bool(np.all(diff[away] <= 1e-6 + 2e-4 * np.abs(want[away]))),
         "floor_within_0.70": bool(np.all(diff[~away] <= 0.70)
                                   and np.all(got[~away] >= LOG_TINY_F32 - 1e-4)),
-        "unvoiced_within_rtol_1e-6": bool(np.all(diff[..., n_bins] <= 1e-6 * np.abs(want[..., n_bins]))),
+        "unvoiced_within_rtol_1e-6" + ("_plus_sum_order" if softmax else ""):
+            bool(np.all(diff[..., n_bins] <= uv_tol)),
     }
     res["ok"] = all(res.values())
     res["max_abs_err"] = float(diff.max())

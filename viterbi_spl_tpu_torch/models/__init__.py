@@ -1,0 +1,31 @@
+"""The acoustic models (counterpart of viterbi_spl_tpu/models/): PyTorch
+modules for the CFP families and jdc, the losses and note grids, the
+family adapters, and the weights carried across from flax (convert.py).
+dcnet, imm and TONet's provenance backbones are not ported yet."""
+
+from .targets import (
+    dcnet_loss,
+    gaussian_blur_targets,
+    jdc_loss,
+    softmax_smoothed_loss,
+    tonet_labels,
+    tonet_loss,
+)
+from .msnet import MSNet
+from .ftanet import FTANet
+from .jdc import JDC
+from .tonet import TONet, cfp_to_tcfp
+
+__all__ = [
+    "MSNet",
+    "FTANet",
+    "JDC",
+    "gaussian_blur_targets",
+    "dcnet_loss",
+    "softmax_smoothed_loss",
+    "jdc_loss",
+    "tonet_labels",
+    "tonet_loss",
+    "TONet",
+    "cfp_to_tcfp",
+]
