@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
 csrc/, holds each against its plain PyTorch version and the NumPy oracle,
 drives the decode service, its fused serving path and the transcription
-path (wav -> CFP -> TONet -> decode) end to end through their entry points,
-and times the kernels at full width.
+paths (wav -> CFP -> TONet -> decode; wav -> NSGT -> DCNet -> decode; wav
+-> STFT -> imm's NMF -> decode, and its --separate pass) end to end through
+their entry points, and times the kernels at full width.
 
     python3 chip_smoke.py [--baseline DIR]
 
@@ -66,6 +67,31 @@ Phases (one JSON line each):
      features and the model's logits on the card against the CPU's
      (FEATURE_TOL, LOGIT_TOL) on a 15.36 s excerpt for TONet and one 20 s
      track for ftanet, msnet and jdc at full width.
+  3f. (after 3e) the 44.1 kHz paths, each call's counts set to 0 just before
+     it and read just after, each call required to launch exactly its
+     kernels. dcnet: 4 synthetic 60 s wavs at 44.1 kHz (write_melody_wav),
+     a DCNet checkpoint at its published widths (seeded torch init, its
+     BatchNorm statistics measured on a synthetic track's features),
+     dcnet artifacts from seeded note tracks;
+     after a warm-up on track 0, cli.transcribe.main --batch 16 --method
+     shaun (K1/K2), with --fused-obs (K5 -> K1/K2), and the card's logits
+     through viterbi_decode_batch_fused_obs (K9 -> K2); the three give the
+     same states, track 0 equals the oracle; ms per stage (wav load, NSGT,
+     model load, model, decode), track 0's front-end in parts, and frames/s; after the counts, K1/K2 (by
+     every layout and route), K5 and K9 against their plain versions on the
+     path's inputs (as phase 2); the NSGT feature and DCNet's
+     logits on the card against the CPU's on a 20 s excerpt (FEATURE_TOL,
+     LOGIT_TOL). imm at the full IMMConfig(): 2 synthetic 30 s wavs, after
+     a warm-up on track 0, --family imm (K3/K4) and --fused-obs (K5 ->
+     K3/K4), the same states, track 0 equal to the oracle on the card's
+     logits, K3/K4 (every route) and K5 against their plain versions on the
+     path's inputs; the sweeps each fit ran, ms per sweep, ms per stage (wav load,
+     STFT, NMF fit, energies, decode), frames/s; --separate on one stereo
+     20 s wav (exactly one K3 and one K4), melody + accompaniment within
+     SEPARATE_BOUND of the mix per channel; on a 5 s excerpt the card's
+     power spectrogram against the CPU's (IMM_SX_TOL), and both fits from
+     the CPU's spectrogram and the same draws: the same sweeps, logits
+     within IMM_LOGIT_ATOL.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
      with K4's segment length and the frames its seams re-chased); with
@@ -90,7 +116,8 @@ Phases (one JSON line each):
      earlier K1-K6 and K9 in turns at the same launches, and their sums.
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
-     bounds it (and the phase 4d sums).
+     bounds it (and the phase 4d sums), with its launches on the fused,
+     transcription (3e) and 44.1 kHz (3f: dcnet, imm with --separate) paths.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -854,13 +881,16 @@ VOICING_TH = 0.01
 # card against CPU, on the same input (features: the same wav; logits: the
 # card's features): max |diff| over the CPU's largest |value|, and for the
 # logits also the relative L2 error. The CFP chain runs in float64 on both
-# (frontend/cfp.py), so its float32 features agree to rounding. msnet's
+# (frontend/cfp.py), so its float32 features agree to rounding. The NSGT
+# (dcnet) runs in complex64 on both: its feature (range [0, 1]) is held to
+# the 1e-4 the port's tests hold it to against the JAX package's
+# (tests/test_torch_nsgt.py: two float32 FFT libraries near the -120 dB floor). msnet's
 # argmax pool reroutes a value where a near-tie flips between two sum
 # orders (tests/test_precision.py says as much for bfloat16), so its
 # largest difference is loose and its L2 error tight.
-FEATURE_TOL = 1e-5
+FEATURE_TOL = {"tonet": 1e-5, "ftanet": 1e-5, "msnet": 1e-5, "jdc": 1e-5, "dcnet": 1e-4}
 LOGIT_TOL = {"tonet": (1e-4, 5e-5), "ftanet": (1e-4, 5e-5), "msnet": (5e-2, 1e-3),
-             "jdc": (1e-4, 5e-5)}
+             "jdc": (1e-4, 5e-5), "dcnet": (1e-4, 5e-5)}
 
 
 def write_melody_wav(path: Path, rng, seconds: float, sr: int = TRANSCRIBE_SR) -> None:
@@ -880,10 +910,11 @@ def write_melody_wav(path: Path, rng, seconds: float, sr: int = TRANSCRIBE_SR) -
     wavfile.write(path, sr, (np.clip(x, -1, 1) * 32767 * 0.8).astype(np.int16))
 
 
-def card_against_cpu(dev, family: str, wav: Path, model_kwargs: dict, seed: int) -> dict:
+def card_against_cpu(dev, family: str, wav: Path, model_kwargs: dict, seed: int,
+                     model=None) -> dict:
     """One family's front-end on the card against the CPU's on one wav, and
-    its model (seeded torch init, full width) on the card against the CPU
-    on the card's features."""
+    its model (`model` on the CPU, else a seeded torch init at full width)
+    on the card against the CPU on the card's features."""
     from viterbi_spl_tpu_torch.apps.common import init_model, model_logits_for_dataset
     from viterbi_spl_tpu_torch.cli import transcribe as TR
     from viterbi_spl_tpu_torch.io.wav import load_wav
@@ -893,7 +924,8 @@ def card_against_cpu(dev, family: str, wav: Path, model_kwargs: dict, seed: int)
     f_cpu = TR.features_from_samples(family, samples, device="cpu")
     f_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
     cfg = importlib.import_module(f"viterbi_spl_tpu_torch.apps.{family}").config()
-    model, _, _ = init_model(cfg, model_kwargs, seed=seed)
+    if model is None:
+        model, _, _ = init_model(cfg, model_kwargs, seed=seed)
     ds = TR._WavDataset(["x"], [f_card])
     lg_cpu = model_logits_for_dataset(cfg, model, ds)[0]
     t0 = time.perf_counter()
@@ -902,16 +934,45 @@ def card_against_cpu(dev, family: str, wav: Path, model_kwargs: dict, seed: int)
     l_err = float(np.abs(lg_card - lg_cpu).max() / np.abs(lg_cpu).max())
     rec = {"phase": "transcribe_card_vs_cpu", "family": family, "frames": len(f_card),
            "feature_shape": list(f_card.shape[1:]), "feature_max_abs_err_rel": f_err,
-           "feature_tol": FEATURE_TOL, "logit_max_abs_err_rel": l_err,
+           "feature_tol": FEATURE_TOL[family], "logit_max_abs_err_rel": l_err,
            "logit_rel_l2": float(np.linalg.norm(lg_card - lg_cpu) / np.linalg.norm(lg_cpu)),
            "logit_tol": LOGIT_TOL[family], "card_model_seconds": card_s,
            "finite": bool(np.isfinite(lg_card).all())}
     emit(rec)
     check(np.isfinite(f_card).all() and rec["finite"], f"{family}: finite features and logits")
-    check(f_err <= FEATURE_TOL, f"{family}: card features within {FEATURE_TOL} of the CPU's")
+    check(f_err <= FEATURE_TOL[family],
+          f"{family}: card features within {FEATURE_TOL[family]} of the CPU's")
     check(l_err <= LOGIT_TOL[family][0] and rec["logit_rel_l2"] <= LOGIT_TOL[family][1],
           f"{family}: card logits within {LOGIT_TOL[family]} of the CPU's")
     return rec
+
+
+def reset_counts() -> None:
+    for wrapper in VD.KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def melody_states(recs, n_bins):
+    return [np.where(r["voiced"], r["bins"], n_bins) for r in recs]
+
+
+def check_oracle(setup, logits, states, what: str) -> None:
+    """states equal the NumPy oracle's path on setup's log observations of
+    logits (the port's PyTorch observation model on the setup's device)."""
+    log_obs = log_obs_fn(setup.observation_probs(logits)).cpu().numpy()
+    log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
+    check(np.array_equal(states, viterbi_oracle_log(log_B, log_pi, log_obs)),
+          f"{what} equals the oracle on the card's logits")
+
+
+def staged_logits(logits, dev) -> torch.Tensor:
+    """Per-track [T_i, n_bins] logits as one zero-filled [N, T_max, n_bins]
+    batch on the card."""
+    lengths = [lg.shape[0] for lg in logits]
+    staged = np.zeros((len(logits), max(lengths), logits[0].shape[1]), np.float32)
+    for i, lg in enumerate(logits):
+        staged[i, : lengths[i]] = lg
+    return torch.from_numpy(staged).to(dev)
 
 
 def phase_transcribe(dev, tmp: Path) -> dict:
@@ -959,8 +1020,7 @@ def phase_transcribe(dev, tmp: Path) -> dict:
     # a warm-up on track 0 (cuFFT plans, cuDNN's choices, the kernels'
     # first launches), before the counts are set to 0
     TR.main(common[:1] + common[TRANSCRIBE_TRACKS:] + ["--out", str(tmp / "warm")])
-    for wrapper in VD.KERNEL_WRAPPERS.values():
-        wrapper.launches = 0
+    reset_counts()
     stages, fused_stages = {}, {}
     t0 = time.perf_counter()
     recs = run_counted({"K1", "K2"}, "transcribe --method shaun", TR.main,
@@ -974,13 +1034,10 @@ def phase_transcribe(dev, tmp: Path) -> dict:
         family="tonet", artifacts=str(tmp / "hmm_tr"), threshold=VOICING_TH, method="shaun",
         device=dev))
     lengths = np.array([lg.shape[0] for lg in logits], np.int32)
-    staged = np.zeros((len(lengths), lengths.max(), spec.n_bins), np.float32)
-    for i, lg in enumerate(logits):
-        staged[i, : lengths[i]] = lg
     api_states = run_counted(
         {"K9", "K2"}, "the transcribe logits through viterbi_decode_batch_fused_obs",
         VD.viterbi_decode_batch_fused_obs, transition_matrix=setup.transition_matrix,
-        prob_init=setup.init_probs, logits=torch.from_numpy(staged).to(dev), lengths=lengths,
+        prob_init=setup.init_probs, logits=staged_logits(logits, dev), lengths=lengths,
         obs=setup.obs_config()).cpu().numpy()
     launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
     check(all(launches[k] > 0 for k in ("K1", "K2", "K5", "K9")),
@@ -993,16 +1050,12 @@ def phase_transcribe(dev, tmp: Path) -> dict:
           "one melody line a track, one entry a frame")
     check(frames == TRANSCRIBE_TRACKS * TRANSCRIBE_SECONDS * TRANSCRIBE_SR // 80,
           f"{frames} frames: 6000 a 60 s track at the 10 ms hop")
-    for r, f, st, L in zip(recs, fused, api_states, lengths):
-        states = np.where(r["voiced"], r["bins"], spec.n_bins)
-        check(np.array_equal(states, np.where(f["voiced"], f["bins"], spec.n_bins))
-              and np.array_equal(states, st[:L]),
+    for r, states, f, api, L in zip(recs, melody_states(recs, spec.n_bins),
+                                    melody_states(fused, spec.n_bins), api_states, lengths):
+        check(np.array_equal(states, f) and np.array_equal(states, api[:L]),
               f"{r['name']}: --fused-obs and the fused decode API give the CLI's states")
-    log_obs = log_obs_fn(setup.observation_probs(logits[0])).cpu().numpy()
-    log_B, log_pi = prepare_log_params(setup.transition_matrix, setup.init_probs)
-    check(np.array_equal(np.where(recs[0]["voiced"], recs[0]["bins"], spec.n_bins),
-                         viterbi_oracle_log(log_B, log_pi, log_obs)),
-          "transcribe track 0 (6000 frames) equals the oracle on the card's logits")
+    check_oracle(setup, logits[0], melody_states(recs, spec.n_bins)[0],
+                 "transcribe track 0 (6000 frames)")
     check(all(np.isfinite(lg).all() for lg in logits), "finite logits")
 
     with float32_math(dev):
@@ -1024,6 +1077,319 @@ def phase_transcribe(dev, tmp: Path) -> dict:
     card_against_cpu(dev, "tonet", excerpt, {}, seed=11)
     for family, seed in (("ftanet", 12), ("msnet", 13), ("jdc", 14)):
         card_against_cpu(dev, family, short, {}, seed)
+    return rec
+
+
+# ----------------------------------------------------------------------
+# The 44.1 kHz transcription paths: wav -> NSGT -> DCNet -> decode, and the
+# checkpoint-free imm (sinebell STFT -> NMF fit -> log energies -> decode),
+# with its --separate pass.
+# ----------------------------------------------------------------------
+
+HI_SR = 44100
+DCNET_TRACKS, DCNET_SECONDS, DCNET_EXCERPT_SECONDS = 4, 60, 20.0
+IMM_TRACKS, IMM_SECONDS, IMM_EXCERPT_SECONDS = 2, 30, 5.0
+SEPARATE_SECONDS = 20.0
+# card against CPU for imm, on the same 5 s excerpt: the power spectrogram
+# (max |diff| over the CPU's largest power: float32 FFTs), then both fits
+# from the CPU's spectrogram and the same draws: the same sweeps, and the
+# log-energy logits within IMM_LOGIT_ATOL (the port's CPU tests hold them
+# within 1e-4 of the JAX package's over 12-15 sweeps at the debug size;
+# here up to 100 sweeps at the full size, with cuBLAS's sum orders)
+IMM_SX_TOL = 1e-6
+IMM_LOGIT_ATOL = 1e-3
+# melody + accompaniment against the mix, per channel: mean squared error
+# over the channel's mean square (tests/test_transcribe.py:172's bound)
+SEPARATE_BOUND = 0.5
+
+
+def write_stereo_wav(path: Path, rng, seconds: float, sr: int = HI_SR) -> np.ndarray:
+    """A harmonic voice on a seeded melody walk (write_melody_wav's) over a
+    noise accompaniment, panned apart (left 0.8 voice + 0.3 noise, right 0.4
+    + 0.8), PCM16; returns the mix as read back [n, 2]."""
+    from scipy.io import wavfile
+
+    from viterbi_spl_tpu_torch.io.wav import load_wav
+
+    voice_path = path.with_suffix(".voice.wav")
+    write_melody_wav(voice_path, rng, seconds, sr)
+    voice = load_wav(voice_path, sr=sr)[0]
+    acc = 0.15 * rng.normal(size=len(voice))
+    mix = np.stack([0.8 * voice + 0.3 * acc, 0.4 * voice + 0.8 * acc], 1)
+    wavfile.write(path, sr, (np.clip(mix, -1, 1) * 32767).astype(np.int16))
+    return load_wav(path, sr=sr, mono=False)[0]
+
+
+def dcnet_checkpoint(path: Path, seed: int, features: np.ndarray) -> None:
+    """A DCNet checkpoint at its published widths: a seeded torch init whose
+    BatchNorm running statistics are each layer's input statistics on
+    `features` (a synthetic track's NSGT feature, on the CPU), as training
+    leaves them, so that eval mode normalizes every layer. (With the init's
+    own statistics, or drawn ones, the activations shrink layer by layer and
+    the logits come out flat: 0.009 apart over a whole track, where
+    every decode is a near-tie.)"""
+    from viterbi_spl_tpu_torch.apps import dcnet as dcnet_app
+    from viterbi_spl_tpu_torch.apps.common import init_model
+    from viterbi_spl_tpu_torch.harness.train import TrainState, save_checkpoint, split_state_dict
+    from viterbi_spl_tpu_torch.models.layers import BatchNorm
+
+    model, _, _ = init_model(dcnet_app.config(), seed=seed)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+    def keep_stats(module, args):
+        x = args[0].to(torch.float32)
+        axes = [d for d in range(x.ndim) if d != 1]
+        mean = x.mean(dim=axes)
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        module.mean.copy_(mean)
+        module.var.copy_(((x - mean.view(shape)) ** 2).mean(dim=axes))
+
+    hooks = [m.register_forward_pre_hook(keep_stats) for m in norms]
+    with torch.no_grad():
+        model(torch.from_numpy(features[None]), batch_stats=True)
+    for h in hooks:
+        h.remove()
+    params, batch_stats = split_state_dict(model)
+    save_checkpoint(path, TrainState(params, batch_stats, voicing_threshold=VOICING_TH), "dcnet")
+
+
+def phase_dcnet(dev, errs, tmp: Path) -> dict:
+    """dcnet through cli.transcribe.main on the card: 4 synthetic 60 s wavs
+    at 44.1 kHz, a DCNet checkpoint at its published widths, dcnet HMM
+    artifacts from seeded note tracks. After a warm-up on track 0, with the
+    counts set to 0 just before and read just after: --method shaun (K1/K2),
+    --fused-obs (K5 -> K1/K2), then the card's logits through the fused
+    decode API (K9 -> K2). Then: the same states from all three, track 0
+    equal to the oracle, K1/K2, K5 and K9 against their plain versions on
+    the path's inputs, the NSGT feature and DCNet's logits on the card
+    against the CPU's on a 20 s excerpt."""
+    from viterbi_spl_tpu_torch.apps.common import load_state
+    from viterbi_spl_tpu_torch.cli import transcribe as TR
+    from viterbi_spl_tpu_torch.frontend.nsgt import dcnet_feature, nsgt_for_length
+    from viterbi_spl_tpu_torch.harness.train import restore_checkpoint
+    from viterbi_spl_tpu_torch.io.wav import load_wav
+    from viterbi_spl_tpu_torch.models import DCNet
+
+    rng = np.random.default_rng(9)
+    spec = family_spec("dcnet")
+    wavs = [tmp / f"dc{i}.wav" for i in range(DCNET_TRACKS)]
+    for w in wavs:
+        write_melody_wav(w, rng, DCNET_SECONDS, HI_SR)
+    excerpt = tmp / "dc_excerpt.wav"
+    write_melody_wav(excerpt, np.random.default_rng(90), DCNET_EXCERPT_SECONDS, HI_SR)
+    ckpt = tmp / "dcnet.pt"
+    calib = tmp / "dc_calib.wav"
+    write_melody_wav(calib, np.random.default_rng(91), 10.0, HI_SR)
+    dcnet_checkpoint(ckpt, 21, TR.features_from_samples(
+        "dcnet", load_wav(calib, sr=HI_SR)[0], device="cpu"))
+    notes = []
+    for _ in range(4):
+        walk = 60.0 + np.cumsum(rng.integers(-2, 3, 4000)) / 5.0
+        notes.append(np.where(np.repeat(rng.random(200) > 0.25, 20), np.clip(walk, 40, 90), 0.0))
+    art = build_hmm_artifacts(quantize_tracks_for_family(notes, spec), spec, tmp / "hmm_dc")
+    bstruct = VB.extract_banded_structure(art["transition_matrix"])
+    check(bstruct is not None, "dcnet's shaped matrix is banded")
+    common = [str(w) for w in wavs] + ["--family", "dcnet", "--batch", "16", "--ckpt", str(ckpt),
+                                       "--artifacts", str(tmp / "hmm_dc"), "--format", "npz",
+                                       "--device", str(dev)]
+
+    TR.main(common[:1] + common[DCNET_TRACKS:] + ["--out", str(tmp / "dc_warm")])
+    reset_counts()
+    stages, fused_stages = {}, {}
+    t0 = time.perf_counter()
+    recs = run_counted({"K1", "K2"}, "transcribe --family dcnet", TR.main,
+                       common + ["--out", str(tmp / "dc"), "--method", "shaun"], stages=stages)
+    wall_s = time.perf_counter() - t0
+    fused = run_counted({"K5", "K1", "K2"}, "transcribe --family dcnet --fused-obs", TR.main,
+                        common + ["--out", str(tmp / "dc_fused"), "--fused-obs"],
+                        stages=fused_stages)
+    logits, _ = TR.nn_logits_from_wavs("dcnet", wavs, str(ckpt), device=dev)
+    setup = cli_decode.build_setup(argparse.Namespace(
+        family="dcnet", artifacts=str(tmp / "hmm_dc"), threshold=VOICING_TH, method="shaun",
+        device=dev))
+    lengths = np.array([lg.shape[0] for lg in logits], np.int32)
+    batch = staged_logits(logits, dev)
+    api_states = run_counted(
+        {"K9", "K2"}, "the dcnet logits through viterbi_decode_batch_fused_obs",
+        VD.viterbi_decode_batch_fused_obs, transition_matrix=setup.transition_matrix,
+        prob_init=setup.init_probs, logits=batch, lengths=lengths,
+        obs=setup.obs_config()).cpu().numpy()
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+
+    # what came out (these launches come after the counts and do not count)
+    frames = int(lengths.sum())
+    check(len(recs) == len(fused) == DCNET_TRACKS
+          and all(len(r["voiced"]) == L for r, L in zip(recs, lengths)),
+          "dcnet: one melody line a track, one entry a frame")
+    check(frames == DCNET_TRACKS * -(-DCNET_SECONDS * HI_SR // 256),
+          f"dcnet: {frames} frames, one a 256-sample hop")
+    for st, f, api, L in zip(melody_states(recs, spec.n_bins),
+                             melody_states(fused, spec.n_bins), api_states, lengths):
+        check(np.array_equal(st, f) and np.array_equal(st, api[:L]),
+              "dcnet: --fused-obs and the fused decode API give the CLI's states")
+    check_oracle(setup, logits[0], melody_states(recs, spec.n_bins)[0],
+                 f"dcnet track 0 ({lengths[0]} frames)")
+    check(all(np.isfinite(lg).all() for lg in logits), "dcnet: finite logits")
+    # the front-end stage of track 0 in parts (host seconds, the card
+    # synchronised by each part's copy to the host)
+    y0 = load_wav(wavs[0], sr=HI_SR)[0]
+    nsgt = nsgt_for_length(len(y0), device=dev)
+    t0 = time.perf_counter()
+    nsgt.track_blocks(y0)
+    t1 = time.perf_counter()
+    mag = nsgt.transform_track(y0)
+    t2 = time.perf_counter()
+    dcnet_feature(mag)
+    t3 = time.perf_counter()
+    rec = {"phase": "transcribe_dcnet", "tracks": DCNET_TRACKS, "seconds_each": DCNET_SECONDS,
+           "frames": frames, "batch": 16, "nsgt_Ls": nsgt.Ls, "band_d_max": bstruct.d_max,
+           "front_end_ms_track0": {"track_blocks": 1e3 * (t1 - t0),
+                                   "transform_track": 1e3 * (t2 - t1),
+                                   "dcnet_feature": 1e3 * (t3 - t2)},
+           "stage_ms": {k: 1e3 * v for k, v in stages.items()},
+           "stage_ms_fused_obs": {k: 1e3 * v for k, v in fused_stages.items()},
+           "wall_ms": 1e3 * wall_s, "frames_per_s": frames / wall_s,
+           "frames_per_s_fused_obs": frames / sum(fused_stages.values()),
+           "voiced_share": float(np.mean(np.concatenate([r["voiced"] for r in recs]))),
+           "launches": launches}
+    emit(rec)
+    log_obs, _ = padded_log_obs(setup, logits)
+    record_errors(errs, "banded", "transcribe dcnet 321", len(lengths), log_obs.shape[1],
+                  *compare_kernels("banded", setup.transition_matrix, setup.init_probs,
+                                   log_obs, lengths))
+    obs = setup.obs_config()
+    errs["K5"] = max(errs["K5"], check_obs(OF.log_obs(batch, obs), OF.log_obs_plain(batch, obs),
+                                           obs, "transcribe dcnet 320 shaun spw 5"))
+    compare_k9(setup.transition_matrix, setup.init_probs, batch, lengths, obs,
+               "transcribe dcnet 321", errs)
+    state, _, _ = restore_checkpoint(ckpt)
+    model = DCNet().eval()
+    load_state(model, state)
+    card_against_cpu(dev, "dcnet", excerpt, {}, seed=21, model=model)
+    return rec
+
+
+def phase_imm(dev, errs, tmp: Path) -> dict:
+    """imm through cli.transcribe.main on the card at the full IMMConfig():
+    2 synthetic 30 s wavs at 44.1 kHz. After a warm-up on track 0, with the
+    counts set to 0 just before and read just after: --family imm (K3/K4),
+    then --fused-obs (K5 -> K3/K4); then one stereo 20 s wav through
+    --separate (one K3 and one K4). Then: the same states with and without
+    --fused-obs, track 0 equal to the oracle on the card's logits, K3/K4
+    and K5 against their plain versions on the path's inputs, the
+    separation reconstructing the mix per channel, and on a 5 s excerpt the
+    card's power spectrogram and NMF fit against the CPU's."""
+    from viterbi_spl_tpu_torch.cli import transcribe as TR
+    from viterbi_spl_tpu_torch.io.wav import load_wav
+    from viterbi_spl_tpu_torch.models.imm import IMM, IMMConfig
+
+    rng = np.random.default_rng(10)
+    wavs = [tmp / f"imm{i}.wav" for i in range(IMM_TRACKS)]
+    for w in wavs:
+        write_melody_wav(w, rng, IMM_SECONDS, HI_SR)
+    excerpt = tmp / "imm_excerpt.wav"
+    write_melody_wav(excerpt, np.random.default_rng(100), IMM_EXCERPT_SECONDS, HI_SR)
+    stereo = tmp / "stereo.wav"
+    mix = write_stereo_wav(stereo, np.random.default_rng(101), SEPARATE_SECONDS)
+    common = [str(w) for w in wavs] + ["--family", "imm", "--batch", "16", "--format", "npz",
+                                       "--device", str(dev)]
+
+    TR.main(common[:1] + common[IMM_TRACKS:] + ["--out", str(tmp / "imm_warm")])
+    kept = []
+    real_logits = TR.imm_logits_from_wavs
+
+    def keep_logits(*args, **kwargs):
+        kept.append(real_logits(*args, **kwargs))
+        return kept[-1]
+
+    TR.imm_logits_from_wavs = keep_logits
+    try:
+        reset_counts()
+        stages, fused_stages, sep_stages = {}, {}, {}
+        t0 = time.perf_counter()
+        recs = run_counted({"K3", "K4"}, "transcribe --family imm", TR.main,
+                           common + ["--out", str(tmp / "imm")], stages=stages)
+        wall_s = time.perf_counter() - t0
+        fused = run_counted({"K5", "K3", "K4"}, "transcribe --family imm --fused-obs", TR.main,
+                            common + ["--out", str(tmp / "imm_fused"), "--fused-obs"],
+                            stages=fused_stages)
+        seps = run_counted({"K3": 1, "K4": 1}, "transcribe --family imm --separate", TR.main,
+                           [str(stereo), "--family", "imm", "--separate", "--device", str(dev),
+                            "--out", str(tmp / "imm_sep")], stages=sep_stages)
+        launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    finally:
+        TR.imm_logits_from_wavs = real_logits
+
+    # what came out (these launches come after the counts and do not count)
+    imm = IMM(IMMConfig(), device=dev)
+    U = imm.config.U
+    logits = kept[0]
+    lengths = [len(r["voiced"]) for r in recs]
+    frames = int(sum(lengths))
+    check(frames == IMM_TRACKS * -(-IMM_SECONDS * HI_SR // 256) and len(fused) == IMM_TRACKS,
+          f"imm: {frames} frames, one a 256-sample hop")
+    for st, f in zip(melody_states(recs, U), melody_states(fused, U)):
+        check(np.array_equal(st, f), "imm: --fused-obs gives the CLI's states")
+    setup = TR._imm_setup(imm, argparse.Namespace(method="shaun", threshold=None,
+                                                  fused_obs=False, mesh=None, device=dev))
+    check_oracle(setup, logits[0], melody_states(recs, U)[0], f"imm track 0 ({lengths[0]} frames)")
+    log_obs, _ = padded_log_obs(setup, logits)
+    record_errors(errs, "dense", "transcribe imm 722", len(lengths), log_obs.shape[1],
+                  *compare_kernels("dense", setup.transition_matrix, setup.init_probs,
+                                   log_obs, np.array(lengths, np.int32)))
+    batch, obs = staged_logits(logits, dev), setup.obs_config()
+    errs["K5"] = max(errs["K5"], check_obs(OF.log_obs(batch, obs), OF.log_obs_plain(batch, obs),
+                                           obs, "transcribe imm 721 shaun spw 20"))
+    check(all(np.isfinite(lg).all() for lg in logits), "imm: finite logits")
+    sep = seps[0]
+    recon = [float(np.mean((sep["melody"][:, c] + sep["accompaniment"][:, c] - mix[:, c]) ** 2)
+                   / np.mean(mix[:, c] ** 2)) for c in (0, 1)]
+    check(sep["melody"].shape == mix.shape and all(e < SEPARATE_BOUND for e in recon),
+          f"imm --separate: melody + accompaniment reconstruct the mix per channel: {recon}")
+    for part in ("melody", "accompaniment"):
+        out, sr = load_wav(tmp / "imm_sep" / f"stereo_{part}.wav", mono=False)
+        check(sr == HI_SR and out.shape == mix.shape, f"imm --separate wrote {part}")
+
+    # card against CPU on a 5 s excerpt: the spectrogram, then both fits
+    # from the CPU's spectrogram and the same draws
+    y = load_wav(excerpt, sr=HI_SR)[0]
+    cpu = IMM(IMMConfig(), device="cpu")
+    SX_cpu = cpu.power_spectrogram(y)
+    sx_err = float((imm.power_spectrogram(y).cpu() - SX_cpu).abs().max() / SX_cpu.max())
+    t0 = time.perf_counter()
+    fit_cpu = cpu.fit(SX_cpu)
+    cpu_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit_card = imm.fit(SX_cpu)
+    card_fit_s = time.perf_counter() - t0
+    lg_cpu, lg_card = cpu.logits_from_fit(fit_cpu, SX_cpu), imm.logits_from_fit(fit_card, SX_cpu)
+    l_err = float(np.abs(lg_card - lg_cpu).max())
+    sweeps = stages["sweeps"]
+    rec = {"phase": "transcribe_imm", "tracks": IMM_TRACKS, "seconds_each": IMM_SECONDS,
+           "frames": frames, "config": "IMMConfig() (w 2048, h 256, U 721, R 40, P 30, K 10)",
+           "sweeps": sweeps, "sweeps_fused_obs": fused_stages["sweeps"],
+           "ms_per_sweep": 1e3 * stages["nmf_fit"] / sum(sweeps),
+           "stage_ms": {k: 1e3 * v for k, v in stages.items() if k != "sweeps"},
+           "stage_ms_fused_obs": {k: 1e3 * v for k, v in fused_stages.items() if k != "sweeps"},
+           "wall_ms": 1e3 * wall_s, "frames_per_s": frames / wall_s,
+           "frames_per_s_fused_obs": frames / sum(v for k, v in fused_stages.items()
+                                                  if k != "sweeps"),
+           "voiced_share": float(np.mean(np.concatenate([r["voiced"] for r in recs]))),
+           "separate": {"seconds": SEPARATE_SECONDS, "frames": len(sep["states"]),
+                        "sweeps": list(sep["sweeps"]),
+                        "stage_ms": {k: 1e3 * v for k, v in sep_stages.items()},
+                        "recon_err": recon, "recon_bound": SEPARATE_BOUND},
+           "card_vs_cpu": {"seconds": IMM_EXCERPT_SECONDS, "frames": int(SX_cpu.shape[0]),
+                           "sx_max_abs_err_rel": sx_err, "sx_tol": IMM_SX_TOL,
+                           "sweeps_card": fit_card["sweeps"], "sweeps_cpu": fit_cpu["sweeps"],
+                           "err_card": fit_card["err"], "err_cpu": fit_cpu["err"],
+                           "logit_max_abs_err": l_err, "logit_tol": IMM_LOGIT_ATOL,
+                           "card_fit_ms": 1e3 * card_fit_s, "cpu_fit_ms": 1e3 * cpu_fit_s},
+           "launches": launches}
+    emit(rec)
+    check(sx_err <= IMM_SX_TOL, f"imm: card spectrogram within {IMM_SX_TOL} of the CPU's")
+    check(fit_card["sweeps"] == fit_cpu["sweeps"], "imm: card and CPU fits run the same sweeps")
+    check(l_err <= IMM_LOGIT_ATOL, f"imm: card logits within {IMM_LOGIT_ATOL} of the CPU's")
     return rec
 
 
@@ -1663,6 +2029,7 @@ def main(argv=None) -> int:
         fused_launches = phase_fused_path(dev, errs, ctx)
         seq_launches, seq = phase_seq_path(dev, errs, ctx)
         transcribe = phase_transcribe(dev, Path(tmp))
+        hi = {"dcnet": phase_dcnet(dev, errs, Path(tmp)), "imm": phase_imm(dev, errs, Path(tmp))}
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
@@ -1691,6 +2058,7 @@ def main(argv=None) -> int:
             **entry(main_rec), "library_ms": None,
             "launches_on_fused_path": fused_launches[k],
             "launches_on_transcribe_path": transcribe["launches"][k],
+            "launches_on_44k_paths": {name: rec["launches"][k] for name, rec in hi.items()},
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()

@@ -56,7 +56,7 @@ def orbax_to_torch(family: str, ckpt_dir, out) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", required=True, choices=["tonet", "ftanet", "msnet", "jdc"])
+    ap.add_argument("--family", required=True, choices=["tonet", "ftanet", "msnet", "jdc", "dcnet"])
     ap.add_argument("ckpt", help="the JAX package's orbax checkpoint directory")
     ap.add_argument("out", help="the port's checkpoint file to write")
     args = ap.parse_args(argv)

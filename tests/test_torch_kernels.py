@@ -66,7 +66,7 @@ def _check(t1_k, t1m1_k, st_k, t1_p, t1m1_p, st_p, lengths):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_bins,d_max", [(360, 14), (721, 40)])
+@pytest.mark.parametrize("n_bins,d_max", [(360, 14), (721, 40), (320, 6), (320, 12)])
 def test_cuda_k1_k2_match_plain(cuda, rng, n_bins, d_max):
     walk = [np.clip(n_bins // 2 + np.cumsum(rng.integers(-3, 4, 4000)), 0, n_bins - 1)]
     stats = TP.count_statistics(walk, n_bins)
@@ -110,12 +110,14 @@ def _k1_against_plain(cuda, rng, n_bins, d_max, cluster, lengths, T):
         np.testing.assert_array_equal(t1m1_k[n, :L].cpu().numpy(), t1m1_p[n, :L].numpy())
 
 
-# (n_bins, d_max, cluster sizes): 361 and 722 states at every layout the
-# cluster kernel takes there; the register band's two widths on both sides
+# (n_bins, d_max, cluster sizes): 361, 722 and dcnet's 321 states (d_max 6,
+# and 12, the band of the shaped matrices its artifacts give) at every
+# layout the cluster kernel takes there; the register band's two widths on both sides
 # of their boundary (2 d_max + 1 = 31 | 33, 83); a last block of fewer
 # than d_max targets (29 states over 2 blocks at d_max 15, 49 over 4 at
 # 13), and one that owns only the unvoiced state (57 over 8 at 8)
-K1_LAYOUTS = [(360, 14, (0, 1, 2, 4, 8)), (721, 40, (0, 2, 4, 8)), (200, 15, (1, 2, 8)),
+K1_LAYOUTS = [(360, 14, (0, 1, 2, 4, 8)), (721, 40, (0, 2, 4, 8)), (320, 6, (0, 1, 2, 4, 8)),
+              (320, 12, (0, 1, 2, 4, 8)), (200, 15, (1, 2, 8)),
               (200, 16, (1, 2, 8)), (500, 41, (2, 4)), (28, 15, (1, 2)), (48, 13, (4,)),
               (56, 8, (8,))]
 
@@ -166,7 +168,7 @@ def test_cuda_k1_refuses_layouts_it_cannot_run(cuda, rng, n_bins, d_max, cluster
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_bins,d_max", [(360, 14), (721, 40), (300, 50)])
+@pytest.mark.parametrize("n_bins,d_max", [(360, 14), (721, 40), (300, 50), (320, 6), (320, 12)])
 @pytest.mark.parametrize("fixture", ["forward", "ties"])
 @pytest.mark.parametrize("route", ["pass", "chain"])
 def test_cuda_k2_ragged_and_ties_match_plain(cuda, rng, n_bins, d_max, fixture, route):
@@ -420,7 +422,7 @@ def _obs_cfg(rng, method, n_bins, spw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_bins,spw", [(360, 5), (721, 16), (721, 20)])
+@pytest.mark.parametrize("n_bins,spw", [(360, 5), (721, 16), (721, 20), (320, 5)])
 @pytest.mark.parametrize("method", METHODS)
 def test_cuda_k5_k6_match_plain(cuda, rng, n_bins, spw, method):
     """K5/K6 against their plain versions on the card: lanes at log TINY

@@ -13,8 +13,8 @@ One place for the constants each reference script hard-codes (SURVEY.md §0,
 | tonet  | 360  | 80/8000 (10ms) | 5   | 35.92-rule(10ms) | 2     | 0.32  |
 | imm    | 721  | 256/44100      | 20  | analytic         | —     | 2.442347 (log-energy) |
 
-The note grids come from models/targets.py, as in the JAX package; the
-imm f0 grid is an own copy of models/imm.py's until imm is ported. The dcnet
+The note grids come from models/targets.py and imm's f0 grid from
+models/imm.py, as in the JAX package. The dcnet
 switch matrix is the hard-coded one from
 dcnet/viterbi_transition_matrix.py:78-79; other families count it from the
 validation split.
@@ -28,19 +28,13 @@ import numpy as np
 
 from .hmm.params import single_side_d_max
 from .metrics.mel_eval import hz_to_midi
+from .models.imm import IMMConfig, imm_f0s
 from .models.targets import (
     DCNET_NOTE_RANGE,
     JDC_NOTE_RANGE,
     _msnet_note_range,
     _tonet_note_range,
 )
-
-
-def imm_f0s(fmin: float = 100.0, fmax: float = 800.0, bins_per_note: int = 20):
-    """imm's f0 grid, fmin * 2**(u / (12 * bins_per_note)) (models/imm.py:
-    57-60, 86-88)."""
-    U = int(np.ceil(12 * bins_per_note * np.log2(fmax / fmin))) + 1
-    return fmin * 2.0 ** (np.arange(U) / float(12 * bins_per_note))
 
 
 DCNET_SWITCH = np.array(
@@ -95,7 +89,7 @@ def _spec(name) -> FamilySpec:
                           _tonet_note_range(), logits_need_rereference=True)
     if name == "imm":
         return FamilySpec("imm", 721, h256, 20, None, None, 2.442347, 20,
-                          hz_to_midi(imm_f0s()).astype(np.float32),
+                          hz_to_midi(imm_f0s(IMMConfig())).astype(np.float32),
                           threshold_is_logit=True)
     raise KeyError(f"unknown family {name}")
 

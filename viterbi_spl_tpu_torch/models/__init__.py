@@ -1,7 +1,7 @@
 """The acoustic models (counterpart of viterbi_spl_tpu/models/): PyTorch
-modules for the CFP families and jdc, the losses and note grids, the
-family adapters, and the weights carried across from flax (convert.py).
-dcnet, imm and TONet's provenance backbones are not ported yet."""
+modules for the CFP families, jdc and dcnet, the losses and note grids, the
+family adapters, and the weights carried across from flax (convert.py);
+imm's NMF (imm.py). TONet's provenance backbones are not ported yet."""
 
 from .targets import (
     dcnet_loss,
@@ -11,12 +11,14 @@ from .targets import (
     tonet_labels,
     tonet_loss,
 )
+from .dcnet import DCNet
 from .msnet import MSNet
 from .ftanet import FTANet
 from .jdc import JDC
 from .tonet import TONet, cfp_to_tcfp
 
 __all__ = [
+    "DCNet",
     "MSNet",
     "FTANet",
     "JDC",

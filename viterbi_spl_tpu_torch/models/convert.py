@@ -3,9 +3,9 @@ model family -> this port's state_dict, and the model's constructor
 arguments where the params fix them.
 
 One function per family (`tonet_state_dict`, `ftanet_state_dict`,
-`msnet_state_dict`, `jdc_state_dict`), each a NumPy tree in (nested dicts of
-arrays, as flax's `variables["params"]` and `variables["batch_stats"]`
-hold them) and a state_dict of float32 tensors out; `convert(family, ...)`
+`msnet_state_dict`, `jdc_state_dict`, `dcnet_state_dict`), each a NumPy
+tree in (nested dicts of arrays, as flax's `variables["params"]` and
+`variables["batch_stats"]` hold them) and a state_dict of float32 tensors out; `convert(family, ...)`
 picks one. Layouts: conv kernels HWIO (2-D) or WIO (1-D) -> OIHW / OIW,
 dense kernels [in, out] -> [out, in]; BatchNorm's scale, bias, mean and var
 and LayerNorm's scale and bias carry over as they are; an
@@ -177,11 +177,25 @@ def jdc_state_dict(params, batch_stats) -> dict:
     return out.sd
 
 
+def dcnet_state_dict(params, batch_stats) -> dict:
+    out = _Out()
+    for i in range(4):
+        out.conv(f"local_conv.{i}", params[f"local_conv_{i}"])
+        out.norm(f"local_bn.{i}", params[f"local_bn_{i}"], batch_stats[f"local_bn_{i}"])
+    out.conv("global_conv", params["global_conv"])
+    for name in ("global_bn", "fusion_bn"):
+        out.norm(name, params[name], batch_stats[name])
+    out.dense("fusion_dense", params["fusion_dense"])
+    out.dense("output_dense", params["output_dense"])
+    return out.sd
+
+
 _FAMILIES = {
     "tonet": tonet_state_dict,
     "ftanet": ftanet_state_dict,
     "msnet": msnet_state_dict,
     "jdc": jdc_state_dict,
+    "dcnet": dcnet_state_dict,
 }
 
 

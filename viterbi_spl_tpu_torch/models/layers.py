@@ -16,7 +16,8 @@ NCHW layout.
 - `Conv` / `Dense`: a convolution or a dense layer that runs in the compute
   dtype it is given (float32, or bfloat16 under mixed precision) with
   float32 params, as flax's `dtype=` does. `padding="same"` pads as XLA
-  does for stride 1 (the odd pad on the high side), "valid" not at all.
+  does for stride 1 (the odd pad on the high side), "valid" not at all;
+  `dilation` as flax's `kernel_dilation`.
 
 Params use PyTorch's layouts (OIHW kernels, [out, in] dense weights);
 models/convert.py carries flax's across.
@@ -81,11 +82,12 @@ class Conv(nn.Module):
     """A 1-D or 2-D convolution (len(kernel) says which) in the compute dtype."""
 
     def __init__(self, c_in: int, c_out: int, kernel, stride=1, padding: str = "same",
-                 bias: bool = True):
+                 bias: bool = True, dilation=1):
         super().__init__()
         kernel = tuple(kernel)
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
         self.weight = nn.Parameter(torch.empty(c_out, c_in, *kernel))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
@@ -93,7 +95,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype=F32) -> torch.Tensor:
         return self._conv(x.to(dtype), self.weight.to(dtype), _as(self.bias, dtype),
-                          stride=self.stride, padding=self.padding)
+                          stride=self.stride, padding=self.padding, dilation=self.dilation)
 
 
 class Dense(nn.Module):
