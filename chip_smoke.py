@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
 csrc/, holds each against its plain PyTorch version and the NumPy oracle,
-drives the decode service, its fused serving path and the transcription
+drives the decode service, its fused serving path, the transcription
 paths (wav -> CFP -> TONet -> decode; wav -> NSGT -> DCNet -> decode; wav
--> STFT -> imm's NMF -> decode, and its --separate pass) end to end through
-their entry points, and times the kernels at full width.
+-> STFT -> imm's NMF -> decode, and its --separate pass) and the training
+path (apps.tonet train -> checkpoint -> infer and sweep-obs) end to end
+through their entry points, and times the kernels at full width.
 
     python3 chip_smoke.py [--baseline DIR]
 
@@ -92,6 +93,21 @@ Phases (one JSON line each):
      power spectrogram against the CPU's (IMM_SX_TOL), and both fits from
      the CPU's spectrogram and the same draws: the same sweeps, logits
      within IMM_LOGIT_ATOL.
+  3g. (after 3f) the training path at TONet's published width (360 bins,
+     attn_dim 2048, mode "all", the ftanet backbone, 128-frame chunks,
+     batch 4): apps.tonet.main train --synthetic for 2 epochs of 20 steps
+     with a checkpoint and --log-dir; then, each call's counts set to 0
+     just before it and read just after, infer (exactly K1/K2) and
+     sweep-obs (K1/K2) on that checkpoint. Every epoch's loss finite, one
+     train_oa event an epoch, the checkpoint read by restore_checkpoint and
+     by cli/transcribe's loader, the first test track's states equal to the
+     oracle's. Then 3 steps from the same weights and batches, dropout off,
+     on the card and on the CPU (losses, the first step's gradient and
+     BatchNorm averages within TRAIN_* bounds; later steps' averages and the
+     parameter drift printed), and the times: ms per train step (median of 5 after 2
+     warm-up steps, CUDA events), training frames/s, ms per validation, ms
+     per checkpoint save, infer ms, peak memory, each printed beside the
+     card's name and power limit.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
      with K4's segment length and the frames its seams re-chased); with
@@ -117,7 +133,8 @@ Phases (one JSON line each):
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
      bounds it (and the phase 4d sums), with its launches on the fused,
-     transcription (3e) and 44.1 kHz (3f: dcnet, imm with --separate) paths.
+     transcription (3e), 44.1 kHz (3f: dcnet, imm with --separate) and
+     training (3g: infer, sweep-obs) paths.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -1393,6 +1410,235 @@ def phase_imm(dev, errs, tmp: Path) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------
+# The training path: apps.tonet train -> Trainer -> checkpoint -> infer and
+# sweep-obs (K1/K2), TONet at its published width.
+# ----------------------------------------------------------------------
+
+TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 2, 20
+TRAIN_COMPARE_STEPS, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = 3, 2, 5
+TRAIN_SEED = 41
+# card against CPU, TRAIN_COMPARE_STEPS TONet steps from the same weights (a
+# CPU generator's draws) and batches, dropout off: each step's loss within
+# TRAIN_LOSS_RTOL; the BatchNorm running averages after the first step
+# within TRAIN_BN_TOL (bn_error: a running mean's difference over its
+# channel's standard deviation, a running variance's over itself; a mean
+# that is ~0, as after a BatchNorm, is float noise on both) (later steps' are
+# printed: from the first update on the two runs' params drift apart, by up
+# to 2 lr where a gradient element near 0 took the other sign, which moves
+# the batch statistics); the first step's gradient within TRAIN_GRAD_TOL: (relative L2 of the whole gradient, each tensor's
+# largest difference over the whole gradient's largest |g|). A tensor's
+# largest difference over its own largest |g| is printed, not held: TONet's
+# float32 gradients are ill-conditioned (BatchNorm's backward through batch
+# statistics, the attention softmaxes), so that on the CPU alone float32
+# and float64 differ by up to 8.7e-2 of a small tensor's largest at a
+# narrow width (scripts/train_precision_probe.py); the bounds are those
+# tests/test_torch_apps_cfp.py holds TONet to against the JAX package (its
+# float32 sum orders against the port's).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_BN_TOL = 1e-4
+TRAIN_GRAD_TOL = (3e-2, 3e-2)
+
+
+def _host64(tensors: dict) -> dict:
+    return {k: t.detach().to("cpu", torch.float64) for k, t in tensors.items()}
+
+
+def bn_error(got: dict, want: dict) -> float:
+    """The largest difference of BatchNorm running averages: a mean's over
+    its channel's standard deviation (want's running variance), a
+    variance's over itself."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = want[k[: -len("mean")] + "var"].sqrt() if k.endswith(".mean") else w
+        worst = max(worst, float(((got[k] - w).abs() / scale).max()))
+    return worst
+
+
+def train_card_against_cpu(dev, cfg, batches) -> dict:
+    """TRAIN_COMPARE_STEPS train steps of the full-width TONet on the card
+    and on the CPU from the same weights and batches, dropout off (the step's
+    dropout generator None)."""
+    from viterbi_spl_tpu_torch.apps import common as AC
+
+    runs = {}
+    dropout_generator = AC.dropout_generator
+    AC.dropout_generator = lambda *args, **kwargs: None
+    try:
+        for name, d in (("cpu", "cpu"), ("card", dev)):
+            model, params, stats = AC.init_model(cfg, seed=TRAIN_SEED, device=d)
+            opt = AC.make_optimizer(cfg, model, TRAIN_STEPS_PER_EPOCH)
+            step = AC.make_train_step(cfg, model)
+            rec = {"loss": [], "stats": []}
+            t0 = time.perf_counter()
+            for s, batch in enumerate(batches):
+                loss = step(params, stats, opt, batch, s, 0.5)[3]
+                rec["loss"].append(float(loss))
+                if s == 0:
+                    rec["grads"] = _host64({k: p.grad for k, p in params.items()
+                                            if p.grad is not None})
+                rec["stats"].append(_host64(stats))
+            rec["seconds"] = time.perf_counter() - t0
+            rec["params"] = _host64(params)
+            runs[name] = rec
+            del model, params, stats, opt, step
+    finally:
+        AC.dropout_generator = dropout_generator
+    cpu, card = runs["cpu"], runs["card"]
+    g_cpu = torch.cat([g.flatten() for g in cpu["grads"].values()])
+    g_card = torch.cat([card["grads"][k].flatten() for k in cpu["grads"]])
+    g_max = float(g_cpu.abs().max())
+    per_tensor = {k: float((card["grads"][k] - g).abs().max()) for k, g in cpu["grads"].items()}
+    own_max = {k: per_tensor[k] / max(float(g.abs().max()), 1e-30) for k, g in cpu["grads"].items()}
+    bn_err = [bn_error(c, w) for c, w in zip(card["stats"], cpu["stats"])]
+    drift = max(float((card["params"][k] - p).abs().max()) for k, p in cpu["params"].items())
+    worst = sorted(own_max.items(), key=lambda kv: -kv[1])[:3]
+    res = {"losses_cpu": cpu["loss"], "losses_card": card["loss"],
+           "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(card["loss"], cpu["loss"])],
+           "grad_rel_l2": float((g_card - g_cpu).norm() / g_cpu.norm()),
+           "grad_max_err_over_global_max": max(per_tensor.values()) / g_max,
+           "grad_worst_tensors_own_max": worst, "bn_max_err_rel_by_step": bn_err,
+           "param_drift_max_abs": drift, "param_drift_in_lr": drift / cfg.learning_rate,
+           "cpu_seconds": cpu["seconds"], "card_seconds": card["seconds"]}
+    emit({"phase": "train_card_vs_cpu", **res})
+    check(all(np.isfinite(cpu["loss"] + card["loss"])), "train card vs CPU: finite losses")
+    check(max(res["loss_rel_err"]) <= TRAIN_LOSS_RTOL,
+          f"train card vs CPU: losses within rtol {TRAIN_LOSS_RTOL}: {res['loss_rel_err']}")
+    check(res["grad_rel_l2"] <= TRAIN_GRAD_TOL[0]
+          and res["grad_max_err_over_global_max"] <= TRAIN_GRAD_TOL[1],
+          f"train card vs CPU: first-step gradient within {TRAIN_GRAD_TOL}")
+    check(bn_err[0] <= TRAIN_BN_TOL,
+          f"train card vs CPU: BatchNorm averages after the first step within {TRAIN_BN_TOL}")
+    return res
+
+
+def phase_train(dev, smi: str, tmp: Path) -> dict:
+    """The training path at TONet's published width (360 bins, attn_dim
+    2048, mode "all", the ftanet backbone, 128-frame chunks, batch 4) on the
+    card. apps.tonet.main train --synthetic (6 x 2,000 training frames, 3 + 3
+    validation and test tracks) for TRAIN_EPOCHS epochs of
+    TRAIN_STEPS_PER_EPOCH steps with a checkpoint and events.jsonl; then,
+    the counts set to 0 just before each and read just after, infer
+    (exactly K1/K2) and sweep-obs (K1/K2) on that checkpoint. Checks: every
+    epoch's loss finite, one train_oa event an epoch, the checkpoint read by
+    restore_checkpoint and by cli/transcribe's loader (a 5 s wav), the
+    first test track's Viterbi states equal to the oracle's. Then the card
+    against the CPU (train_card_against_cpu), and times: ms per train step
+    (median of TRAIN_TIMED_STEPS after TRAIN_WARMUP_STEPS, each between
+    CUDA events), training frames/s, ms per validation, ms per checkpoint
+    save, infer ms, peak memory; each printed beside the card's name and
+    power limit."""
+    from viterbi_spl_tpu_torch.apps import common as AC
+    from viterbi_spl_tpu_torch.apps import tonet as tonet_app
+    from viterbi_spl_tpu_torch.cli import transcribe as TR
+    from viterbi_spl_tpu_torch.harness.train import Trainer, TrainState, restore_checkpoint
+
+    ckpt, log = tmp / "tonet_trained.pt", tmp / "train_log"
+    common = ["--synthetic", "--ckpt", str(ckpt)]
+    t0 = time.perf_counter()
+    best = tonet_app.main(["train", *common, "--epochs", str(TRAIN_EPOCHS), "--steps-per-epoch",
+                           str(TRAIN_STEPS_PER_EPOCH), "--patience", "5", "--log-dir", str(log)])
+    train_s = time.perf_counter() - t0
+    events = [json.loads(line) for line in (log / "events.jsonl").read_text().splitlines()]
+    losses = [e["value"] for e in events if e.get("tag") == "train_loss"]
+    check(len(losses) == TRAIN_EPOCHS and all(np.isfinite(losses)),
+          f"train: one finite loss an epoch: {losses}")
+    check(sum(e.get("tag") == "train_oa" for e in events) == TRAIN_EPOCHS,
+          "train: events.jsonl has one train_oa an epoch")
+    state, family, model_kwargs = restore_checkpoint(ckpt)
+    check(family == "tonet" and state.opt_state is not None
+          and state.step == TRAIN_STEPS_PER_EPOCH * (state.epoch + 1)
+          and state.best_oa == best.best_oa,
+          "train: the checkpoint holds the best epoch's state and Adam's")
+    wav = tmp / "train_check.wav"
+    write_melody_wav(wav, np.random.default_rng(31), 5.0)
+    lg, _ = TR.nn_logits_from_wavs("tonet", [wav], str(ckpt), device=dev)
+    check(lg[0].shape[1] == 360 and np.isfinite(lg[0]).all(),
+          "train: cli/transcribe's loader reads the trained checkpoint")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_counted({"K1", "K2"}, "tonet infer on the trained checkpoint", tonet_app.main,
+                      ["infer", *common])
+    infer_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    reset_counts()
+    sweep = run_counted({"K1", "K2"}, "tonet sweep-obs on the trained checkpoint", tonet_app.main,
+                        ["sweep-obs", *common])
+    sweep_launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    check(all(np.isfinite([out["validation"]["viterbi_mean_oa"], out["test"]["raw_mean_oa"]]))
+          and np.all(np.isfinite(sweep["oa"])), "train: finite OAs from infer and sweep-obs")
+
+    # the first test track's states against the oracle (infer's path)
+    cfg = tonet_app.config()
+    with torch.device("meta"):
+        model = cfg.make_model(dtype=cfg.compute_dtype, **model_kwargs)
+    model = model.to_empty(device=dev)
+    AC.load_state(model, state)
+    test = AC.synthetic_dataset(cfg, 3, 2000, 2)
+    setup = AC.build_decoder_setup(cfg, AC.synthetic_dataset(cfg, 3, 2000, 1),
+                                   state.voicing_threshold, device=dev)
+    logits0 = AC.tracks_for_evaluation(cfg, model, test)[0]["logits"]
+    voiced, bins = setup.decode(logits0)
+    check_oracle(setup, logits0, np.where(voiced, bins, setup.n_bins), "train: test track 0")
+    del model
+
+    # the card against the CPU, then the times
+    train_set = AC.synthetic_dataset(cfg, 6, 2000, 0)
+    stream = AC.training_batches(cfg, train_set, np.random.default_rng(0), "cpu")
+    vs_cpu = train_card_against_cpu(dev, cfg, [next(stream) for _ in range(TRAIN_COMPARE_STEPS)])
+    torch.cuda.reset_peak_memory_stats()
+    model, params, stats = AC.init_model(cfg, seed=TRAIN_SEED, device=dev)
+    opt = AC.make_optimizer(cfg, model, TRAIN_STEPS_PER_EPOCH)
+    step = AC.make_train_step(cfg, model)
+    batches = AC.training_batches(cfg, train_set, np.random.default_rng(1), dev)
+    step_ms = []
+    for s in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
+        batch = next(batches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(params, stats, opt, batch, s, 0.5)[3]
+        end.record()
+        end.synchronize()
+        check(np.isfinite(float(loss)), "train: finite loss in the timed steps")
+        if s >= TRAIN_WARMUP_STEPS:
+            step_ms.append(start.elapsed_time(end))
+    trainer = Trainer(step, AC.make_validate(cfg, model, AC.synthetic_dataset(cfg, 3, 2000, 1)),
+                      ckpt_path=tmp / "tonet_timed.pt", family="tonet")
+    live = TrainState(params, stats, opt_state=opt)
+    t0 = time.perf_counter()
+    trainer.validate(live)
+    val_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.save(live)
+    save_s = time.perf_counter() - t0
+    ms = float(np.median(step_ms))
+    rec = {"phase": "train", "model": "tonet all/ftanet attn_dim 2048", "batch": cfg.batch_size,
+           "chunk_frames": cfg.snippet_len, "epochs": TRAIN_EPOCHS,
+           "steps_per_epoch": TRAIN_STEPS_PER_EPOCH, "train_main_seconds": train_s,
+           "epoch_losses": losses, "best_epoch": best.best_epoch, "best_val_oa": best.best_oa,
+           "voicing_threshold": best.voicing_threshold,
+           "train_step_ms": ms, "train_step_ms_all": step_ms,
+           "train_frames_per_s": cfg.batch_size * cfg.snippet_len / (ms / 1e3),
+           "validation_ms": 1e3 * val_s, "checkpoint_save_ms": 1e3 * save_s,
+           "checkpoint_bytes": (tmp / "tonet_timed.pt").stat().st_size,
+           "infer_ms": 1e3 * infer_s, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "params": sum(p.numel() for p in params.values()),
+           "infer_oa": {s: [out[s]["raw_mean_oa"], out[s]["viterbi_mean_oa"]]
+                        for s in ("validation", "test")},
+           "card_vs_cpu": vs_cpu, "launches": launches, "launches_sweep_obs": sweep_launches}
+    emit(rec)
+    for what, value in (("ms per train step", f"{ms:.2f}"),
+                        ("training frames/s", f"{rec['train_frames_per_s']:.0f}"),
+                        ("ms per validation (3 x 2000 frames)", f"{rec['validation_ms']:.1f}"),
+                        ("ms per checkpoint save", f"{rec['checkpoint_save_ms']:.1f} "
+                                                   f"({rec['checkpoint_bytes']} bytes)"),
+                        ("infer ms", f"{rec['infer_ms']:.1f}"),
+                        ("max_memory_allocated bytes", str(rec["max_memory_allocated"]))):
+        print(f"train phase, {smi}: {what} {value}", flush=True)
+    return rec
+
+
 def phase_streaming(dev) -> dict:
     """StreamingViterbiBatch at tonet 361: 64 streams, 32-frame pushes (320
     ms of audio), lag 128 and lag >= length over 4096 frames of K5's log
@@ -2030,6 +2276,7 @@ def main(argv=None) -> int:
         seq_launches, seq = phase_seq_path(dev, errs, ctx)
         transcribe = phase_transcribe(dev, Path(tmp))
         hi = {"dcnet": phase_dcnet(dev, errs, Path(tmp)), "imm": phase_imm(dev, errs, Path(tmp))}
+        train = phase_train(dev, smi, Path(tmp))
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
@@ -2059,6 +2306,8 @@ def main(argv=None) -> int:
             "launches_on_fused_path": fused_launches[k],
             "launches_on_transcribe_path": transcribe["launches"][k],
             "launches_on_44k_paths": {name: rec["launches"][k] for name, rec in hi.items()},
+            "launches_on_train_path": {"infer": train["launches"][k],
+                                       "sweep_obs": train["launches_sweep_obs"][k]},
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()

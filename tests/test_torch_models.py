@@ -217,9 +217,43 @@ def test_tonet_modes_match_jax(rng, mode):
 
 
 def test_tonet_refuses_unported_backbones():
-    for backbone in ("mcdnn", "msnet", "mldrnet"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            TONet(backbone=backbone)
+    """Every backbone of the JAX package is ported (models/provenance.py);
+    a name outside TONET_BACKBONES is refused."""
+    for backbone in ("ftanet", "mcdnn", "msnet", "mldrnet"):
+        assert TONet(attn_dim=32, mode="single", backbone=backbone).backbone == backbone
+    with pytest.raises(ValueError, match="unknown TONet backbone"):
+        TONet(backbone="resnet")
+
+
+@pytest.mark.parametrize("backbone,mode", [("mcdnn", "all"), ("msnet", "single"),
+                                           ("mldrnet", "single")])
+def test_tonet_provenance_backbones_match_jax(rng, backbone, mode):
+    """TONet on models/provenance.py's backbones (MCDNN, the 360-bin MSnet,
+    MLDRnet; MCDNN in the dual "all" mode, the others bare), eval mode and
+    batch statistics, float32: the eval bound (no SF module normalizes
+    chunk means here); convert reads the backbone back from the params. In
+    training mode the port's BatchNorm averages move as flax's (train=True)
+    do."""
+    x = rng.normal(size=(2, 3, 360, 8)).astype(np.float32)
+    jm = JTONet(attn_dim=32, mode=mode, backbone=backbone)
+    variables = flax_variables(jm, x, seed=6)
+    state_dict, kw = convert("tonet", variables["params"], variables.get("batch_stats", {}))
+    assert kw["backbone"] == backbone and kw["mode"] == mode
+    model = TONet(**kw).eval()
+    model.load_state_dict(state_dict, strict=True)
+    assert_close(port_forward(model, x), jax_forward(jm, variables, x), EVAL_RTOL, backbone)
+    assert_close(port_forward(model, x, batch_stats=True),
+                 jax_forward(jm, variables, x, batch_stats=True), EVAL_RTOL, f"{backbone} bs")
+    with nn.intercept_methods(no_dropout):
+        _, upd = jax.jit(lambda v, x: jm.apply(v, x, train=True, mutable=["batch_stats"]))(
+            variables, jnp.asarray(x))
+    with torch.no_grad():
+        model.train()(torch.from_numpy(x))
+    want, _ = convert("tonet", variables["params"],
+                      jax.tree_util.tree_map(np.asarray, upd.get("batch_stats", {})))
+    for k, v in model.state_dict().items():
+        if k.endswith((".mean", ".var")):
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-4, atol=1e-6, err_msg=k)
 
 
 def test_shuffles_pools_and_tables_equal_jax(rng):

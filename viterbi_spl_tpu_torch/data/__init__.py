@@ -1,5 +1,5 @@
-from .registry import Track
-from .snippets import chunk_fixed, gen_split_list, inference_snippets
+from .registry import Track, TrackDataset, dataset_roots
+from .snippets import chunk_fixed, gen_split_list, inference_snippets, training_snippets
 from .splits import (
     adc04_track_ids,
     medleydb_splits,
@@ -10,9 +10,12 @@ from .splits import (
 
 __all__ = [
     "Track",
+    "TrackDataset",
+    "dataset_roots",
     "chunk_fixed",
     "gen_split_list",
     "inference_snippets",
+    "training_snippets",
     "medleydb_splits",
     "adc04_track_ids",
     "mirex05_track_ids",

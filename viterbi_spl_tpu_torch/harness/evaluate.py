@@ -200,7 +200,9 @@ def decode_and_score_track(
     ref_t = torch.as_tensor(np.asarray(ref_notes), dtype=f32).to(dev)
 
     def notes_from_bins(bins_arr):
-        bins_t = torch.as_tensor(np.asarray(bins_arr)).to(dev, torch.int64)
+        # a tensor on the device (the raw path's peaks) or a NumPy array
+        # (the decoded bins)
+        bins_t = torch.as_tensor(bins_arr).to(dev, torch.int64)
         if setup.interp_est_notes:
             return est_notes_interp(
                 bins_t, probs, setup.note_min, setup.bins_per_semitone, n_bins

@@ -1,7 +1,7 @@
 """The acoustic models (counterpart of viterbi_spl_tpu/models/): PyTorch
-modules for the CFP families, jdc and dcnet, the losses and note grids, the
-family adapters, and the weights carried across from flax (convert.py);
-imm's NMF (imm.py). TONet's provenance backbones are not ported yet."""
+modules for the CFP families, jdc and dcnet, TONet's provenance backbones
+(provenance.py), the losses and note grids, the family adapters, and the
+weights carried across from flax (convert.py); imm's NMF (imm.py)."""
 
 from .targets import (
     dcnet_loss,
@@ -16,6 +16,7 @@ from .msnet import MSNet
 from .ftanet import FTANet
 from .jdc import JDC
 from .tonet import TONet, cfp_to_tcfp
+from .provenance import MCDNN, MLDRnet, TonetMSNet
 
 __all__ = [
     "DCNet",
@@ -30,4 +31,7 @@ __all__ = [
     "tonet_loss",
     "TONet",
     "cfp_to_tcfp",
+    "MCDNN",
+    "TonetMSNet",
+    "MLDRnet",
 ]

@@ -2,7 +2,8 @@
 model family -> this port's state_dict, and the model's constructor
 arguments where the params fix them.
 
-One function per family (`tonet_state_dict`, `ftanet_state_dict`,
+One function per family (`tonet_state_dict` with each of TONet's backbones,
+ftanet's or one of models/provenance.py's, `ftanet_state_dict`,
 `msnet_state_dict`, `jdc_state_dict`, `dcnet_state_dict`), each a NumPy
 tree in (nested dicts of arrays, as flax's `variables["params"]` and
 `variables["batch_stats"]` hold them) and a state_dict of float32 tensors out; `convert(family, ...)`
@@ -10,7 +11,9 @@ picks one. Layouts: conv kernels HWIO (2-D) or WIO (1-D) -> OIHW / OIW,
 dense kernels [in, out] -> [out, in]; BatchNorm's scale, bias, mean and var
 and LayerNorm's scale and bias carry over as they are; an
 OptimizedLSTMCell's eight kernels -> nn.LSTM's stacked (i, f, g, o)
-weights, the hidden kernels' bias in bias_hh and bias_ih zero.
+weights, the hidden kernels' bias in bias_hh and bias_ih zero. A gradient
+or an Adam moment tree has the params' names and shapes, and converts as
+the params do (scripts/orbax_to_torch.py carries optax's Adam state so).
 """
 
 from __future__ import annotations
@@ -90,6 +93,49 @@ def _unet(out: _Out, prefix: str, p, s, names) -> None:
             out.dense(f"{pre}.masks.{j}", sp[names["mask"].format(j)])
 
 
+def _mcdnn(out: _Out, prefix: str, p, s) -> None:
+    for i in range(4):
+        out.dense(f"{prefix}mcdnn.{i}", p[f"mcdnn_{i}"])
+    for i in range(3):
+        out.dense(f"{prefix}bm.{i}", p[f"bm_{i}"])
+
+
+def _tonet_msnet(out: _Out, prefix: str, p, s) -> None:
+    for part in ("enc", "dec"):
+        for i in range(3):
+            out.norm(f"{prefix}{part}_bn.{i}", p[f"{part}_{i}_bn"], s[f"{part}_{i}_bn"])
+            out.conv(f"{prefix}{part}_conv.{i}", p[f"{part}_{i}_conv"])
+    out.norm(f"{prefix}bm_bn", p["bm_bn"], s["bm_bn"])
+    out.conv(f"{prefix}bm_conv", p["bm_conv"])
+
+
+def _mldrnet(out: _Out, prefix: str, p, s) -> None:
+    for name, sub in p.items():
+        if name.startswith("md_"):
+            for j in (1, 2, 3):
+                out.norm(f"{prefix}{name}.bn{j}", sub[f"bn{j}"], s[name][f"bn{j}"])
+                out.conv(f"{prefix}{name}.c{j}", sub[f"c{j}"])
+        elif name.endswith("_bn"):
+            out.norm(f"{prefix}{name}", sub, s[name])
+        else:  # a conv, or a 1 x 1 transposed conv (the same HWIO layout)
+            out.conv(f"{prefix}{name}", sub)
+
+
+def tonet_backbone(params) -> str:
+    """Which backbone a TONet param tree holds (its l_model's layer names)."""
+    names = params["l_model"]
+    if "mcdnn_0" in names:
+        return "mcdnn"
+    if "enc_0_bn" in names:
+        return "msnet"
+    if "md_0" in names:
+        return "mldrnet"
+    return "ftanet"
+
+
+_BACKBONES = {"mcdnn": _mcdnn, "msnet": _tonet_msnet, "mldrnet": _mldrnet}
+
+
 def ftanet_state_dict(params, batch_stats) -> dict:
     out = _Out()
     _unet(out, "net.", params, batch_stats, _FTANET_NAMES)
@@ -98,8 +144,8 @@ def ftanet_state_dict(params, batch_stats) -> dict:
 
 def tonet_kwargs(params) -> dict:
     """TONet's constructor arguments that its params fix: the mode (which
-    sub-modules exist) and attn_dim (the width of the branches' input
-    projection)."""
+    sub-modules exist), the backbone, and attn_dim (the width of the
+    branches' input projection)."""
     if "r_model" in params:
         mode = "tcfp" if "final_linear_tcfp" in params else "all"
     elif "tone_gru" in params:
@@ -109,6 +155,8 @@ def tonet_kwargs(params) -> dict:
     else:
         mode = "single"
     kw = dict(mode=mode)
+    if tonet_backbone(params) != "ftanet":
+        kw["backbone"] = tonet_backbone(params)
     if "tone_in" in params:
         kw["attn_dim"] = int(np.asarray(params["tone_in"]["kernel"]).shape[1])
     return kw
@@ -116,9 +164,13 @@ def tonet_kwargs(params) -> dict:
 
 def tonet_state_dict(params, batch_stats) -> dict:
     out = _Out()
+    backbone = tonet_backbone(params)
     for side in ("l_model", "r_model"):
         if side in params:
-            _unet(out, f"{side}.", params[side], batch_stats[side], _TORCH_FTA_NAMES)
+            if backbone == "ftanet":
+                _unet(out, f"{side}.", params[side], batch_stats[side], _TORCH_FTA_NAMES)
+            else:
+                _BACKBONES[backbone](out, f"{side}.", params[side], batch_stats.get(side, {}))
     for name in ("tcfp_linear", "tcfp_bm", "final_linear"):
         if name in params:
             out.conv(name, params[name])

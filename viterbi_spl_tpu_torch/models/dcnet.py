@@ -5,19 +5,24 @@ Architecture parity with dcnet/acoustic_model_shaun.py:23-91:
 - input [B, T, 500] NSGT feature,
 - "local" stack: 4 conv layers over (time, freq), 16 channels, kernel
   [5,5] then [3,5], time-dilation 2^layer, SAME padding, no bias, each
-  followed by BatchNorm(scale=False) + ReLU,
+  followed by BatchNorm(scale=False) + ReLU (+ dropout 0.2 from layer 1),
 - "global" layer: freq pad [240, 60] then a [1, 97] conv with freq-dilation
-  5 (VALID) -> 128 channels over exactly 320 output bins, BN + ReLU,
-- fusion dense 64 (no bias) + BN + ReLU, output dense 1 (bias),
+  5 (VALID) -> 128 channels over exactly 320 output bins, BN + ReLU + drop,
+- fusion dense 64 (no bias) + BN + ReLU + drop, output dense 1 (bias),
 - squeeze -> [B, T, 320] sigmoid logits.
+
+Trained with per-bin BCE (targets.dcnet_loss) and manual weight decay 2e-4
+on the global conv kernel only (`global_conv_kernel_name`, the trainer's
+add_weight_decay_grad).
 
 Layout: NCHW with H = time and W = frequency ([B, C, T, F]), the JAX
 module's NHWC [B, T, F, C] with the channel axis moved, so that a flax
 HWIO kernel maps to OIHW by one transpose. The denses run over the channel
-axis moved last. Inference only (eval mode: no dropout, BatchNorm by its
-running averages). The JAX module's valid_frames masks bucket padding,
-which its compiled shapes need; the port runs a ragged snippet at its own
-length instead.
+axis moved last. `model.train()` is the JAX module's train=True (BatchNorm
+by the batch, its averages updated; the dropouts draw from the `dropout`
+generator, and are off without one). The JAX module's valid_frames masks
+bucket padding, which its compiled shapes need; the port runs a ragged
+snippet at its own length instead.
 """
 
 from __future__ import annotations
@@ -26,11 +31,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import F32, BatchNorm, Conv, Dense
+from .layers import F32, BatchNorm, Conv, Dense, Dropout, at_least_f32
 
 
 class DCNet(nn.Module):
-    def __init__(self, n_freq_in: int = 500, n_bins: int = 320, dtype=F32):
+    def __init__(self, n_freq_in: int = 500, n_bins: int = 320, dropout_rate: float = 0.2,
+                 dtype=F32):
         super().__init__()
         self.n_freq_in, self.n_bins, self.dtype = n_freq_in, n_bins, dtype
         self.local_conv = nn.ModuleList(
@@ -43,21 +49,32 @@ class DCNet(nn.Module):
         self.fusion_dense = Dense(128, 64, bias=False)
         self.fusion_bn = BatchNorm(64, use_scale=False)
         self.output_dense = Dense(64, 1)
+        self.drop = Dropout(dropout_rate)
 
-    def forward(self, x, batch_stats: bool = False):
+    @staticmethod
+    def global_conv_kernel_name() -> str:
+        """The parameter that receives manual weight decay (the reference's
+        locate_global_kernel_fn targets the 1x97 conv,
+        dcnet/softmax_viterbi.py:293-322; the JAX module's
+        global_conv_kernel_path)."""
+        return "global_conv.weight"
+
+    def forward(self, x, batch_stats: bool = False, dropout: torch.Generator | None = None):
         """x [B, T, 500] -> [B, T, 320] float32 logits."""
         if x.ndim != 3 or x.shape[-1] != self.n_freq_in:
             raise ValueError(f"expected [B, T, {self.n_freq_in}], got {tuple(x.shape)}")
         dt = self.dtype
         h = x[:, None]  # [B, 1, T, F]
-        for conv, bn in zip(self.local_conv, self.local_bn):
+        for i, (conv, bn) in enumerate(zip(self.local_conv, self.local_bn)):
             h = F.relu(bn(conv(h, dt), batch_stats))
+            if i > 0:
+                h = self.drop(h, dropout)
         # global context: freq pad [240, 60], kernel width 97 with dilation 5
         h = self.global_conv(F.pad(h, (240, 60)), dt)
         if h.shape[3] != self.n_bins:
             raise AssertionError(f"global conv produced {h.shape[3]} bins")
-        h = F.relu(self.global_bn(h, batch_stats))
+        h = self.drop(F.relu(self.global_bn(h, batch_stats)), dropout)
         h = self.fusion_dense(h.movedim(1, -1), dt)  # [B, T, 320, 64]
-        h = F.relu(self.fusion_bn(h.movedim(-1, 1), batch_stats))
+        h = self.drop(F.relu(self.fusion_bn(h.movedim(-1, 1), batch_stats)), dropout)
         h = self.output_dense(h.movedim(1, -1), dt)
-        return h[..., 0].to(F32)  # [B, T, 320]
+        return at_least_f32(h[..., 0])  # [B, T, 320]

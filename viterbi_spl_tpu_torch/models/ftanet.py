@@ -15,7 +15,8 @@ Architecture parity with ftanet/acoustic_model.py:13-129:
 Layout: NCHW with H = frequency and W = time ([B, C, F, T]), the JAX
 module's NHWC [B, F, T, C] with the channel axis moved. `batch_stats=True`
 normalizes by the batch's own statistics (the JAX package's eval_batch_stats
-forward, flax train=True with its updates discarded). `dtype` is the compute
+forward, flax train=True with its updates discarded); `model.train()` is
+flax's train=True (the batch's statistics, the running averages updated). `dtype` is the compute
 dtype of the convs and denses; params, BatchNorm, the attention softmaxes
 and the returned logits stay float32.
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import F32, BatchNorm, Conv, Dense
+from .layers import F32, BatchNorm, Conv, Dense, at_least_f32
 
 
 class SFModule(nn.Module):
@@ -51,7 +52,7 @@ class SFModule(nn.Module):
         fused = sum(x_list).mean(dim=(2, 3))  # [B, C]
         fused = F.selu(self.fuse(self.bn(fused, batch_stats), dt))
         mask = torch.stack([m(fused, dt) for m in self.masks], dim=-1)  # [B, C, K]
-        mask = torch.softmax(mask.to(F32), dim=-2).to(dt)
+        mask = torch.softmax(at_least_f32(mask), dim=-2).to(dt)
         out = 0.0
         for i, x_s in enumerate(x_list):
             out = out + x_s * mask[:, :, i, None, None]
@@ -81,12 +82,12 @@ class FTAModule(nn.Module):
 
         # time attention: mean over freq -> [B, C_in, T], softmax over time
         a_t = F.selu(self.ta2(F.selu(self.ta1(x.mean(dim=2), dt)), dt))
-        a_t = torch.softmax(a_t.to(F32), dim=-1).to(dt)
+        a_t = torch.softmax(at_least_f32(a_t), dim=-1).to(dt)
         x_t = F.selu(self.t5(F.selu(self.t3(x, dt)), dt)) * a_t[:, :, None, :]
 
         # frequency attention: mean over time -> [B, C_in, F], softmax over freq
         a_f = F.selu(self.fa2(F.selu(self.fa1(x.mean(dim=3), dt)), dt))
-        a_f = torch.softmax(a_f.to(F32), dim=-1).to(dt)
+        a_f = torch.softmax(at_least_f32(a_f), dim=-1).to(dt)
         x_f = F.selu(self.f5(F.selu(self.f3(x, dt)), dt)) * a_f[:, :, :, None]
         return x_r, x_t, x_f
 
@@ -134,7 +135,7 @@ class FTAUNet(nn.Module):
         h = fta_sf(fta_sf(h, 2), 3)
         h = fta_sf(_upsample22(h), 4)
         h = fta_sf(fta_sf(_upsample22(h), 5), 6)  # [B, 1, F, T]
-        return torch.cat([bm.to(F32), h.to(F32)], dim=2)[:, 0]  # [B, F + 1, T]
+        return torch.cat([at_least_f32(bm), at_least_f32(h)], dim=2)[:, 0]  # [B, F + 1, T]
 
 
 class FTANet(nn.Module):
@@ -144,8 +145,9 @@ class FTANet(nn.Module):
         self.snippet_len = snippet_len
         self.net = FTAUNet(n_bins, ((16, 4), (16, 4), (16, 4), (1, 5)), dtype=dtype)
 
-    def forward(self, x, batch_stats: bool = False):
-        # x: [B, T, 320, 3] (time, freq, ch) -> [B, 3, F, T]
+    def forward(self, x, batch_stats: bool = False, dropout=None):
+        # x: [B, T, 320, 3] (time, freq, ch) -> [B, 3, F, T]; no dropout
+        # (`dropout` is taken for the models' common signature)
         if x.ndim != 4 or x.shape[2] != self.n_bins:
             raise ValueError(f"expected [B, T, {self.n_bins}, 3], got {tuple(x.shape)}")
         out = self.net(x.permute(0, 3, 2, 1), batch_stats)  # [B, 321, T]

@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import F32, BatchNorm, Conv
+from .layers import F32, BatchNorm, Conv, at_least_f32
 
 
 def max_pool_freq4_argmax(x):
@@ -60,8 +60,9 @@ class MSNet(nn.Module):
                                        Conv(64, 32, (5, 5), bias=False),
                                        Conv(128, 64, (5, 5), bias=False)])
 
-    def forward(self, x, batch_stats: bool = False):
-        """x [B, T, 320, 3] -> [B, T, 321]. (The JAX module's valid_frames
+    def forward(self, x, batch_stats: bool = False, dropout=None):
+        """x [B, T, 320, 3] -> [B, T, 321] (no dropout: `dropout` is taken
+        for the models' common signature). (The JAX module's valid_frames
         masks bucket padding, which its compiled shapes need; the port runs
         a ragged snippet at its own length instead.)"""
         if x.ndim != 4 or x.shape[2] != self.n_bins:
@@ -84,4 +85,4 @@ class MSNet(nn.Module):
             h = self.dec_conv[layer](self.dec_bn[layer](h, batch_stats), dt)
             if layer > 0:
                 h = F.selu(h)
-        return torch.cat([nm.to(F32), h.to(F32)], dim=3)[:, 0]  # [B, T, 321]
+        return torch.cat([at_least_f32(nm), at_least_f32(h)], dim=3)[:, 0]  # [B, T, 321]

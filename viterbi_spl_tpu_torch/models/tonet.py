@@ -17,13 +17,16 @@ tonet/model/attention_layer.py:8-180 (pre-LN transformer encoder):
   concat bm -> [B, 361, T].
 
 Inputs follow the reference layout [B, 3, 360, T] (T = 128 snippets), which
-is already NCHW with H = frequency, W = time. This module is inference
-only: it has no dropout (the JAX module's dropouts are off outside
-training), and `batch_stats=True` normalizes by the batch's own statistics
-without turning any dropout on. Attention is a plain matmul + softmax, as
-the JAX module's einsum + softmax. The ablation backbones of
-models/provenance.py (mcdnn, msnet, mldrnet) are not ported yet: only
-backbone="ftanet" is.
+is already NCHW with H = frequency, W = time. `model.train()` is the JAX
+module's train=True: BatchNorm by the batch (its averages updated), and the
+dropouts at the JAX module's sites and rates (attention probabilities 0.1;
+the attention output, the FFN output, the branches' input and their MLP
+decoders 0.2; mcdnn's 0.2) draw from the `dropout` generator, off without
+one. `batch_stats=True` in eval mode normalizes by the batch's own
+statistics and runs no dropout (the apps' eval_batch_stats forward).
+Attention is a plain matmul + softmax, as the JAX module's einsum +
+softmax. The ablation backbones (mcdnn, msnet, mldrnet) are
+models/provenance.py's.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .ftanet import FTAModule, FTAUNet, SFModule
-from .layers import F32, Conv, Dense, LayerNorm
+from .layers import F32, Conv, Dense, Dropout, LayerNorm, at_least_f32
 
 # TONet's torch-variant SF and FTA modules (tonet/model/ftanet.py:8-123)
 # compute what FTANet's do; only the flax param names differ
@@ -60,6 +63,17 @@ class TorchFTAnet(FTAUNet):
 
     def __init__(self, freq_bin: int = 360, dtype=F32):
         super().__init__(freq_bin, ((16, 4), (16, 3), (16, 6), (1, 5)), dtype=dtype)
+
+    def forward(self, x, batch_stats: bool = False, dropout=None):
+        return super().forward(x, batch_stats)
+
+
+def _backbone(name: str, freq_bin: int, dtype) -> nn.Module:
+    if name == "ftanet":
+        return TorchFTAnet(freq_bin, dtype=dtype)
+    from .provenance import MCDNN, MLDRnet, TonetMSNet
+
+    return {"mcdnn": MCDNN, "msnet": TonetMSNet, "mldrnet": MLDRnet}[name](freq_bin, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=8)
@@ -96,8 +110,10 @@ class CombineLayer(nn.Module):
         self.ffn_ln = LayerNorm(d_model)
         self.w1 = Dense(d_model, d_inner)
         self.w2 = Dense(d_inner, d_model)
+        self.attn_drop = Dropout(0.1)
+        self.drop = Dropout(0.2)
 
-    def forward(self, x):
+    def forward(self, x, dropout=None):
         dt = self.dtype
         B, T, _ = x.shape
         h = self.attn_ln(x)
@@ -107,28 +123,28 @@ class CombineLayer(nn.Module):
 
         q, k, v = heads(self.w_qs), heads(self.w_ks), heads(self.w_vs)
         # scores and softmax in float32; attn . v back in the compute dtype
-        attn = (q @ k.transpose(-1, -2)).to(F32) / np.float32(np.sqrt(self.d_k))
-        attn = torch.softmax(attn, dim=-1).to(dt)
+        attn = at_least_f32(q @ k.transpose(-1, -2)) / np.float32(np.sqrt(self.d_k))
+        attn = self.attn_drop(torch.softmax(attn, dim=-1), dropout).to(dt)
         out = (attn @ v).transpose(1, 2).reshape(B, T, -1)
-        x = self.fc(out, dt).to(F32) + x
+        x = at_least_f32(self.drop(self.fc(out, dt), dropout)) + x
 
         h = self.w2(F.relu(self.w1(self.ffn_ln(x), dt)), dt)
-        return h.to(F32) + x
+        return at_least_f32(self.drop(h, dropout)) + x
 
 
 class _MLPDecoder(nn.Module):
-    """Dense -> SELU stack (tonet_shaun_simple.py:96-115; its dropouts are
-    off outside training)."""
+    """Dense -> Dropout -> SELU stack (tonet_shaun_simple.py:96-115)."""
 
     def __init__(self, d_in: int, widths, dtype=F32):
         super().__init__()
         self.dtype = dtype
         dims = (d_in,) + tuple(widths)
         self.layers = nn.ModuleList(Dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.drop = Dropout(0.2)
 
-    def forward(self, x):
+    def forward(self, x, dropout=None):
         for layer in self.layers:
-            x = F.selu(layer(x, self.dtype))
+            x = F.selu(self.drop(layer(x, self.dtype), dropout))
         return x
 
 
@@ -149,20 +165,21 @@ class _Branch(nn.Module):
             self.attn = nn.ModuleList(CombineLayer(attn_dim, attn_dim * 2, dtype=dtype)
                                       for _ in range(2))
             self.seg_frame = seg_frame
+            self.drop = Dropout(0.2)
             width = attn_dim
         self.linear = _MLPDecoder(width, tuple(widths) + (n_cls,), dtype=dtype)
 
-    def forward(self, fa):
+    def forward(self, fa, dropout=None):
         if self.spl:
             h = self.gru(fa, self.dtype)
         else:
-            h = self.inp(fa, self.dtype).to(F32)
+            h = at_least_f32(self.inp(fa, self.dtype))
             pos = _position_table(self.seg_frame, h.shape[-1])[: fa.shape[1]]
             h = h + torch.as_tensor(pos, device=h.device)
-            h = self.norm(h)
+            h = self.norm(self.drop(h, dropout))
             for layer in self.attn:
-                h = layer(h)
-        return self.linear(h).to(F32).transpose(1, 2)
+                h = layer(h, dropout)
+        return at_least_f32(self.linear(h, dropout)).transpose(1, 2)
 
 
 class TONet(nn.Module):
@@ -174,7 +191,8 @@ class TONet(nn.Module):
       decoders), "spl" (single backbone + linear decoders), "tcfp" (dual
       backbone, direct 720->360 fusion, no tone/octave decoders), "single"
       (the bare backbone).
-    backbone — "ftanet" (the others wait for models/provenance.py's port).
+    backbone — "ftanet" | "mcdnn" | "msnet" | "mldrnet"
+      (models/provenance.py), applied to both branches in the dual modes.
 
     The non-melody row comes FIRST in every output (class 0). Returns
     dict(pitch[, chroma, octave]); chroma/octave are None for the
@@ -188,16 +206,11 @@ class TONet(nn.Module):
             raise ValueError(f"unknown TONet mode {mode!r}")
         if backbone not in TONET_BACKBONES:
             raise ValueError(f"unknown TONet backbone {backbone!r}")
-        if backbone != "ftanet":
-            raise ValueError(
-                f"TONet backbone {backbone!r} (models/provenance.py) is not ported yet; "
-                "only 'ftanet' is"
-            )
-        self.freq_bin, self.mode, self.dtype = freq_bin, mode, dtype
+        self.freq_bin, self.mode, self.backbone, self.dtype = freq_bin, mode, backbone, dtype
         self.dual = mode in ("all", "tcfp")
-        self.l_model = TorchFTAnet(freq_bin, dtype=dtype)
+        self.l_model = _backbone(backbone, freq_bin, dtype)
         if self.dual:
-            self.r_model = TorchFTAnet(freq_bin, dtype=dtype)
+            self.r_model = _backbone(backbone, freq_bin, dtype)
         if mode == "tcfp":
             self.final_linear_tcfp = Dense(2 * freq_bin, freq_bin)
             self.final_bm = Dense(2, 1)
@@ -214,17 +227,17 @@ class TONet(nn.Module):
             n_final = tone_class + 1 + octave_class + 1 + freq_bin + 1
             self.final_linear = Conv(n_final, freq_bin, (5,))
 
-    def forward(self, cfp, tcfp=None, batch_stats: bool = False):
+    def forward(self, cfp, tcfp=None, batch_stats: bool = False, dropout=None):
         if cfp.ndim != 4 or cfp.shape[1] != 3 or cfp.shape[2] != self.freq_bin:
             raise ValueError(f"expected [B, 3, {self.freq_bin}, T], got {tuple(cfp.shape)}")
         dt = self.dtype
-        out_l = self.l_model(cfp, batch_stats)
+        out_l = self.l_model(cfp, batch_stats, dropout)
         if self.mode == "single":
             return dict(pitch=out_l, chroma=None, octave=None)
 
         bm_l, feat_l = out_l[:, :1], out_l[:, 1:]
         if self.dual:
-            out_r = self.r_model(cfp_to_tcfp(cfp) if tcfp is None else tcfp, batch_stats)
+            out_r = self.r_model(cfp_to_tcfp(cfp) if tcfp is None else tcfp, batch_stats, dropout)
             feature_agg = torch.cat([feat_l, out_r[:, 1:]], dim=1)  # [B, 720, T]
             bm_agg = torch.cat([bm_l, out_r[:, :1]], dim=1)  # [B, 2, T]
         else:
@@ -234,29 +247,29 @@ class TONet(nn.Module):
         ba = bm_agg.transpose(1, 2)  # [B, T, 2] / 1
         if self.mode == "tcfp":
             # direct fusion (tonet/model/tonet.py:139-151, 219-235)
-            fin = F.selu(self.final_linear_tcfp(fa, dt)).to(F32)
-            fbm = F.selu(self.final_bm(ba, dt)).to(F32)
+            fin = at_least_f32(F.selu(self.final_linear_tcfp(fa, dt)))
+            fbm = at_least_f32(F.selu(self.final_bm(ba, dt)))
             pitch = torch.cat([fbm.transpose(1, 2), fin.transpose(1, 2)], dim=1)
             return dict(pitch=pitch, chroma=None, octave=None)
 
         if self.dual:
             # "all": the tcfp fusion convs over time (channels = freq bins)
-            feature_agg_mi = F.selu(self.tcfp_linear(feature_agg, dt)).to(F32)  # [B, 360, T]
-            bm_agg_mi = F.selu(self.tcfp_bm(bm_agg, dt)).to(F32)  # [B, 1, T]
+            feature_agg_mi = at_least_f32(F.selu(self.tcfp_linear(feature_agg, dt)))  # [B, 360, T]
+            bm_agg_mi = at_least_f32(F.selu(self.tcfp_bm(bm_agg, dt)))  # [B, 1, T]
         else:
             feature_agg_mi, bm_agg_mi = feature_agg, bm_agg
 
-        tone_prob = self.tone(fa)  # [B, 12, T]
-        octave_prob = self.octave(fa)  # [B, 6, T]
+        tone_prob = self.tone(fa, dropout)  # [B, 12, T]
+        octave_prob = self.octave(fa, dropout)  # [B, 6, T]
         if self.dual:
-            tone_bm = F.selu(self.tone_bm(ba, dt)).to(F32)  # [B, T, 1]
-            octave_bm = F.selu(self.octave_bm(ba, dt)).to(F32)
+            tone_bm = at_least_f32(F.selu(self.tone_bm(ba, dt)))  # [B, T, 1]
+            octave_bm = at_least_f32(F.selu(self.octave_bm(ba, dt)))
         else:
-            tone_bm = octave_bm = ba.to(F32)
+            tone_bm = octave_bm = at_least_f32(ba)
         tone_prob = torch.cat([tone_bm.transpose(1, 2), tone_prob], dim=1)  # [B, 13, T]
         octave_prob = torch.cat([octave_bm.transpose(1, 2), octave_prob], dim=1)  # [B, 7, T]
 
         final = torch.cat([tone_prob, octave_prob, feature_agg_mi, bm_agg_mi], dim=1)
-        final = F.selu(self.final_linear(final, dt)).to(F32)  # [B, 360, T]
+        final = at_least_f32(F.selu(self.final_linear(final, dt)))  # [B, 360, T]
         pitch = torch.cat([bm_agg_mi, final], dim=1)  # [B, 361, T]
         return dict(pitch=pitch, chroma=tone_prob, octave=octave_prob)
