@@ -2,9 +2,11 @@
 csrc/, holds each against its plain PyTorch version and the NumPy oracle,
 drives the decode service, its fused serving path, the transcription
 paths (wav -> CFP -> TONet -> decode; wav -> NSGT -> DCNet -> decode; wav
--> STFT -> imm's NMF -> decode, and its --separate pass) and the training
-path (apps.tonet train -> checkpoint -> infer and sweep-obs) end to end
-through their entry points, and times the kernels at full width.
+-> STFT -> imm's NMF -> decode, and its --separate pass), the training
+path (apps.tonet train -> checkpoint -> infer and sweep-obs) and the
+real-data chains on a fake corpus (train -> infer --external-eval, the
+native prefetch ring, imm's external corpora) end to end through their
+entry points, and times the kernels at full width.
 
     python3 chip_smoke.py [--baseline DIR]
 
@@ -108,6 +110,26 @@ Phases (one JSON line each):
      warm-up steps, CUDA events), training frames/s, ms per validation, ms
      per checkpoint save, infer ms, peak memory, each printed beside the
      card's name and power limit.
+  3h. (after 3g) the real-data chains on a fake corpus (data/fake_corpus.py:
+     10 s tracks, its CFPs on the card), its roots in the environment, each
+     counted call's counts set to 0 just before it and read just after.
+     TONet at its published width: train --debug (10 steps on the fake
+     MedleyDB: wav -> CFP on the card -> model -> loss), then infer --debug
+     --external-eval (exactly K1/K2): validation, test, adc04, mirex05,
+     mir1k and rwc, finite raw and Viterbi OAs, cross_check_diff_viterbi
+     within 0.05; adc04's first track decoded on the card and on the CPU to
+     the same states, equal to the oracle's; the train step on the
+     real-data batches with and without the native prefetch ring (CUDA
+     events, and the host's wall time with the batch drawn); the ring's
+     batches equal to python_reference_batches, byte for byte. msnet: train
+     --native-prefetch one step through the ring, infer --external-eval
+     (exactly K1/K2), the cross-check within 1e-6 on validation, test and
+     adc04. imm: eval --debug --external-eval --original with the full
+     IMMConfig() (its viterbi method on the banded kernels K1/K2, its
+     original method on K3/K4), finite OAs of the three methods on adc04,
+     mirex05 and mir1k, no rwc, the fits' ms a corpus. The native CPU
+     decoder's frames/s on the host (361 states), equal to the oracle.
+     Times printed beside the card's name and power limit.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
      with K4's segment length and the frames its seams re-chased); with
@@ -133,8 +155,9 @@ Phases (one JSON line each):
   5. the kernels line: per kernel its launches on the main path, error
      against its plain version, time, plain-version time, bound and what
      bounds it (and the phase 4d sums), with its launches on the fused,
-     transcription (3e), 44.1 kHz (3f: dcnet, imm with --separate) and
-     training (3g: infer, sweep-obs) paths.
+     transcription (3e), 44.1 kHz (3f: dcnet, imm with --separate),
+     training (3g: infer, sweep-obs) and real-data (3h: tonet and msnet
+     infer --external-eval, imm eval --external-eval) paths.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -147,6 +170,8 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -1639,6 +1664,317 @@ def phase_train(dev, smi: str, tmp: Path) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------
+# The real-data chains on the fake corpus: wav/aiff -> front-end on the card
+# -> model -> decode, train -> infer --external-eval (TONet at full width,
+# msnet with --native-prefetch), imm's eval --external-eval --original at
+# the full IMMConfig(); the native CPU decoder's rate on the host.
+# ----------------------------------------------------------------------
+
+REAL_SECONDS = 10.0  # the fake corpus's tracks: MedleyDB, external and RWC
+REAL_TONET_STEPS = 10
+REAL_EVAL_SETS = ("validation", "test", "adc04", "mirex05", "mir1k", "rwc")
+# cross_check_diff_viterbi (the accumulated OA against the mir_eval-semantics
+# score): exact where the family's estimate grid is the corpus's annotation
+# timebase (msnet on the 256-hop grid: medleydb and adc04), else within the
+# JAX drill's 0.05 (tests/test_fake_corpus.py:52-66)
+REAL_STRICT_TOL, REAL_LOOSE_TOL = 1e-6, 0.05
+NATIVE_S, NATIVE_T = 361, 2000
+
+
+class _Timed:
+    """fn, recording each call's seconds, the card synchronised at both ends,
+    under label(*args, **kwargs)."""
+
+    def __init__(self, fn, label=lambda *args, **kwargs: None):
+        self.fn, self.label, self.calls = fn, label, []
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append((self.label(*args, **kwargs), time.perf_counter() - t0))
+        return out
+
+
+def check_external_infer(out, family: str, strict=()) -> dict:
+    """All six eval sets with finite raw and Viterbi OAs and the cross-check
+    within REAL_STRICT_TOL (strict sets) or REAL_LOOSE_TOL -> {set: [raw OA,
+    Viterbi OA, largest |cross-check diff|]}."""
+    got = [k for k in out if k != "state"]
+    check(got == list(REAL_EVAL_SETS), f"{family} infer --external-eval: eval sets {got}")
+    rec = {}
+    for name in REAL_EVAL_SETS:
+        res = out[name]
+        diff = max(abs(d) for d in res["cross_check_diff_viterbi"])
+        rec[name] = [res["raw_mean_oa"], res["viterbi_mean_oa"], diff]
+        check(np.isfinite(res["raw_mean_oa"]) and np.isfinite(res["viterbi_mean_oa"]),
+              f"{family} {name}: finite OAs")
+        tol = REAL_STRICT_TOL if name in strict else REAL_LOOSE_TOL
+        check(diff < tol, f"{family} {name}: cross-check {diff} within {tol}")
+    return rec
+
+
+def step_times(step, params, stats, opt, batches, first_step: int) -> dict:
+    """TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS train steps on `batches`: each
+    timed step between CUDA events (median), and the host's wall time per
+    timed step with its batch drawn, the card synchronised at both ends."""
+    events = []
+    for s in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
+        if s == TRAIN_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        batch = next(batches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(params, stats, opt, batch, first_step + s, 0.5)[3]
+        end.record()
+        if s >= TRAIN_WARMUP_STEPS:
+            events.append((start, end))
+        check(np.isfinite(float(loss)), "real-data TONet steps: finite loss")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+    ms = [a.elapsed_time(b) for a, b in events]
+    return {"step_ms": float(np.median(ms)), "step_ms_all": ms, "wall_ms_per_step": 1e3 * wall}
+
+
+def native_decoder_rate() -> dict:
+    """The native CPU decoder (native/viterbi_native.cpp, g++ -O3
+    -march=native) on the host: a NATIVE_S-state random HMM over NATIVE_T
+    frames in the log domain, its states equal to the oracle's, frames/s
+    (median of 3), and the host CPU's model."""
+    from viterbi_spl_tpu_torch import native
+
+    rng = np.random.default_rng(17)
+    A = rng.random((NATIVE_S, NATIVE_S)) ** 4
+    A /= A.sum(axis=1, keepdims=True)
+    pi = np.full(NATIVE_S, 1.0 / NATIVE_S)
+    log_B, log_pi = prepare_log_params(A, pi)
+    log_obs = np.log(rng.random((NATIVE_T, NATIVE_S)) + 1e-30).astype(np.float32)
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native decoder builds with g++ and loads")
+    build_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        states = native.viterbi_native_log_fn(log_B, log_pi, log_obs)
+        secs.append(time.perf_counter() - t0)
+    check(np.array_equal(states, viterbi_oracle_log(log_B, log_pi, log_obs)),
+          "the native decoder equals the oracle")
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout.splitlines()
+    cpu = next((ln.split(":", 1)[1].strip() for ln in lscpu if ln.startswith("Model name")),
+               platform.machine())
+    cpu = f"{cpu} ({platform.machine()}, {os.cpu_count()} cores)"
+    return {"states": NATIVE_S, "frames": NATIVE_T, "build_seconds": build_s,
+            "frames_per_s": NATIVE_T / float(np.median(secs)), "host_cpu": cpu}
+
+
+def phase_real_data(dev, smi: str, tmp: Path) -> dict:
+    """The real-data chains on a fake corpus (data/fake_corpus.py, its CFPs
+    on the card; REAL_SECONDS tracks), its roots in the environment:
+
+    - TONet at its published width: apps.tonet train --debug for
+      REAL_TONET_STEPS steps on the fake MedleyDB (wav -> CFP on the card
+      -> model -> loss), then, the counts set to 0 just before and read
+      just after, infer --debug --external-eval (exactly K1/K2): all six
+      eval sets, finite OAs, the cross-check within REAL_LOOSE_TOL; adc04's
+      first track decoded on the card and on the CPU (the kernels' plain
+      versions) to the same states, equal to the oracle's; the train step on
+      the real-data batches with and without the native prefetch ring; the
+      ring's batch stream equal to python_reference_batches.
+    - msnet at its width: train --debug --native-prefetch one step (the
+      ring, not the fallback), infer --debug --external-eval (exactly
+      K1/K2), the cross-check within REAL_STRICT_TOL on validation, test and
+      adc04.
+    - imm eval --debug --external-eval --original with the full IMMConfig()
+      (--debug keeps two tracks a corpus; its smaller NMF is replaced by the
+      full one), counted: its viterbi method decodes through the banded
+      kernels (imm's shaped matrix at 722 states is banded), its original
+      method through the dense ones (K3/K4); finite OAs of the three methods
+      on adc04, mirex05 and mir1k, and no rwc.
+    - the native CPU decoder's frames/s on the host.
+    Times printed beside the card's name and power limit."""
+    import contextlib
+    import io
+
+    from viterbi_spl_tpu_torch.apps import common as AC
+    from viterbi_spl_tpu_torch.apps import imm as imm_app
+    from viterbi_spl_tpu_torch.apps import msnet as msnet_app
+    from viterbi_spl_tpu_torch.apps import tonet as tonet_app
+    from viterbi_spl_tpu_torch.cli.transcribe import features_from_samples
+    from viterbi_spl_tpu_torch.data import generate_fake_corpus, medleydb_splits
+    from viterbi_spl_tpu_torch.harness.train import restore_checkpoint
+    from viterbi_spl_tpu_torch.models.imm import IMM, IMMConfig
+    from viterbi_spl_tpu_torch.native.prefetch import SnippetPrefetcher
+
+    rec = {"phase": "real_data", "seconds_each": REAL_SECONDS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roots = generate_fake_corpus(tmp / "corpus", duration=REAL_SECONDS,
+                                 rwc_duration=REAL_SECONDS, device=dev)
+    rec["corpus_ms"] = 1e3 * (time.perf_counter() - t0)
+    saved = {k: os.environ.get(k) for k in roots}
+    os.environ.update(roots)
+    try:
+        # TONet: train, then infer --external-eval, counted and timed by set
+        ck = tmp / "tonet_real.pt"
+        common = ["--debug", "--ckpt", str(ck)]
+        t0 = time.perf_counter()
+        best = tonet_app.main(["train", *common, "--epochs", "1", "--steps-per-epoch",
+                               str(REAL_TONET_STEPS), "--patience", "1"])
+        rec["tonet_train_main_seconds"] = time.perf_counter() - t0
+        check(np.isfinite(best.best_oa) and best.step == REAL_TONET_STEPS,
+              "real-data tonet train: finite validation OA after its steps")
+        # app_main calls run_inference once an eval set, in REAL_EVAL_SETS' order
+        inference, building = AC.run_inference, tonet_app.build_external_datasets
+        AC.run_inference = _Timed(inference)
+        tonet_app.build_external_datasets = _Timed(building)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run_counted({"K1", "K2"}, "tonet infer --external-eval", tonet_app.main,
+                              ["infer", *common, "--external-eval"])
+            rec["tonet_infer_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["launches_tonet"] = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+            rec["tonet_infer_ms_by_set"] = {
+                name: 1e3 * s for name, (_, s) in zip(REAL_EVAL_SETS, AC.run_inference.calls)}
+            rec["tonet_external_datasets_ms"] = 1e3 * tonet_app.build_external_datasets.calls[0][1]
+        finally:
+            AC.run_inference = inference
+            tonet_app.build_external_datasets = building
+        rec["tonet_oa"] = check_external_infer(out, "tonet")
+
+        # adc04's first track: the card's decode against the CPU's and the oracle
+        state, _, model_kwargs = restore_checkpoint(ck)
+        cfg = tonet_app.config()
+        with torch.device("meta"):
+            model = cfg.make_model(dtype=cfg.compute_dtype, **model_kwargs)
+        model = model.to_empty(device=dev)
+        AC.load_state(model, state)
+        real = tonet_app.build_real_datasets(debug=True, device=dev)
+        adc = AC.build_external_eval_datasets(
+            lambda x: features_from_samples("tonet", x, device=dev), sr=8000,
+            labels_on_10ms=True, debug=True, corpora=("adc04",))["adc04"]
+        logits0 = AC.tracks_for_evaluation(cfg, model, adc)[0]["logits"]
+        paths = []
+        for d in (dev, "cpu"):
+            setup = AC.build_decoder_setup(cfg, real["validation"], state.voicing_threshold,
+                                           device=d)
+            voiced, bins = setup.decode(logits0)
+            paths.append(np.where(voiced, bins, setup.n_bins))
+        check(np.array_equal(paths[0], paths[1]),
+              "real-data tonet: adc04 track 0 decodes to the same states on the card and the CPU")
+        check_oracle(setup, logits0, paths[1], "real-data tonet: adc04 track 0")
+        del model
+
+        # the train step on real-data batches, with and without the ring; the
+        # ring's stream against its Python reference
+        train_set = real["training"]
+        model, params, stats = AC.init_model(cfg, seed=TRAIN_SEED, device=dev)
+        opt = AC.make_optimizer(cfg, model, REAL_TONET_STEPS)
+        step = AC.make_train_step(cfg, model)
+        for key, ring in (("tonet_step", False), ("tonet_step_native_prefetch", True)):
+            batches = AC.training_batches(cfg, train_set, np.random.default_rng(2), dev,
+                                          native_prefetch=ring)
+            rec[key] = step_times(step, params, stats, opt, batches,
+                                  0 if not ring else TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS)
+            del batches
+        del model, params, stats, opt, step
+        pf = SnippetPrefetcher(train_set, cfg.snippet_len, cfg.batch_size,
+                               np.random.default_rng(3))
+        ref = pf.python_reference_batches(np.random.default_rng(3))
+        full = sum(t.num_frames // cfg.snippet_len for t in train_set.tracks)
+        n_batches = 3 * full // cfg.batch_size + 1  # three epochs and more
+        ring = iter(pf)
+        for _ in range(n_batches):
+            (a, b), (c, d) = next(ring), next(ref)
+            check(a.tobytes() == c.tobytes() and b.tobytes() == d.tobytes(),
+                  "the prefetch ring's batches equal python_reference_batches")
+        pf.close()
+        rec["ring_batches_checked"] = n_batches
+
+        # msnet: one train step through the ring, infer --external-eval
+        ck = tmp / "msnet_real.pt"
+        common = ["--debug", "--ckpt", str(ck)]
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            msnet_app.main(["train", *common, "--epochs", "1", "--steps-per-epoch", "1",
+                            "--patience", "1", "--native-prefetch"])
+        print(log.getvalue(), end="", flush=True)
+        check("native prefetch unavailable" not in log.getvalue(),
+              "msnet --native-prefetch trained through the ring")
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_counted({"K1", "K2"}, "msnet infer --external-eval", msnet_app.main,
+                          ["infer", *common, "--external-eval"])
+        rec["msnet_infer_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["launches_msnet"] = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+        rec["msnet_oa"] = check_external_infer(out, "msnet",
+                                               strict=("validation", "test", "adc04"))
+
+        # imm at the full IMMConfig on --debug's tracks, each corpus's STFTs,
+        # fits and labels timed; its kernels follow from the app's matrix (the
+        # shaped one from the validation labels)
+        setup = imm_app.build_setup(IMM(IMMConfig(), device=dev), stats_notes=[
+            imm_app._medleydb_label(t)["notes"] for t in medleydb_splits()["validation"][:2]])
+        banded = VB.extract_banded_structure(setup.transition_matrix) is not None
+        expect = {"K3", "K4"} | ({"K1", "K2"} if banded else set())
+        del setup
+        config, build_eval = imm_app.IMMConfig, AC.build_external_eval_datasets
+        imm_app.IMMConfig = lambda **kw: IMMConfig()
+        AC.build_external_eval_datasets = _Timed(build_eval, lambda *a, corpora, **kw: corpora[0])
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run_counted(expect, "imm eval --external-eval --original", imm_app.main,
+                              ["eval", "--debug", "--external-eval", "--original"])
+            rec["imm_eval_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["launches_imm"] = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+            rec["imm_fits_ms_by_corpus"] = {c: 1e3 * s for c, s in
+                                            AC.build_external_eval_datasets.calls}
+        finally:
+            imm_app.IMMConfig, AC.build_external_eval_datasets = config, build_eval
+        rec["imm_viterbi_banded"] = banded
+        rec["imm_oa"] = {}
+        for corpus in ("adc04", "mirex05", "mir1k"):
+            res = out[corpus]
+            oas = [res["raw_mean_oa"], res["viterbi_mean_oa"], res["original"]["mean_oa"]]
+            rec["imm_oa"][corpus] = oas
+            check(np.all(np.isfinite(oas)) and len(res["original"]["oas"]) == 2,
+                  f"imm {corpus}: finite OAs of the three methods")
+        check("rwc" not in out, "imm: no rwc")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    rec["native"] = native_decoder_rate()
+    emit(rec)
+    lines = [("corpus generation ms", f"{rec['corpus_ms']:.1f}"),
+             ("TONet train step ms (Python pipeline)",
+              f"{rec['tonet_step']['step_ms']:.2f} (wall {rec['tonet_step']['wall_ms_per_step']:.2f})"),
+             ("TONet train step ms (--native-prefetch)",
+              f"{rec['tonet_step_native_prefetch']['step_ms']:.2f} "
+              f"(wall {rec['tonet_step_native_prefetch']['wall_ms_per_step']:.2f})"),
+             ("TONet infer --external-eval ms", f"{rec['tonet_infer_ms']:.1f}"),
+             ("TONet external front-ends ms", f"{rec['tonet_external_datasets_ms']:.1f}"),
+             *((f"TONet infer ms, {name}", f"{ms:.1f}")
+               for name, ms in rec["tonet_infer_ms_by_set"].items()),
+             ("msnet infer --external-eval ms", f"{rec['msnet_infer_ms']:.1f}"),
+             ("imm eval --external-eval --original ms", f"{rec['imm_eval_ms']:.1f}"),
+             *((f"imm STFTs, fits and labels ms, {c}", f"{ms:.1f}")
+               for c, ms in rec["imm_fits_ms_by_corpus"].items())]
+    for what, value in lines:
+        print(f"real-data phase, {smi}: {what} {value}", flush=True)
+    print(f"real-data phase, host CPU {rec['native']['host_cpu']}: native decoder "
+          f"{rec['native']['states']} states, frames/s {rec['native']['frames_per_s']:.0f}",
+          flush=True)
+    return rec
+
+
 def phase_streaming(dev) -> dict:
     """StreamingViterbiBatch at tonet 361: 64 streams, 32-frame pushes (320
     ms of audio), lag 128 and lag >= length over 4096 frames of K5's log
@@ -2277,6 +2613,7 @@ def main(argv=None) -> int:
         transcribe = phase_transcribe(dev, Path(tmp))
         hi = {"dcnet": phase_dcnet(dev, errs, Path(tmp)), "imm": phase_imm(dev, errs, Path(tmp))}
         train = phase_train(dev, smi, Path(tmp))
+        real = phase_real_data(dev, smi, Path(tmp))
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
@@ -2308,6 +2645,9 @@ def main(argv=None) -> int:
             "launches_on_44k_paths": {name: rec["launches"][k] for name, rec in hi.items()},
             "launches_on_train_path": {"infer": train["launches"][k],
                                        "sweep_obs": train["launches_sweep_obs"][k]},
+            "launches_on_real_data_path": {"tonet_infer_external": real["launches_tonet"][k],
+                                           "msnet_infer_external": real["launches_msnet"][k],
+                                           "imm_eval_external": real["launches_imm"][k]},
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()

@@ -343,10 +343,11 @@ def test_calibration_modes_match_jax(fam):
     check_calibration_modes(family_run(fam))
 
 
-def test_msnet_app_main_cycle(tmp_path, capsys):
+def test_msnet_app_main_cycle(tmp_path, capsys, monkeypatch):
     """train (events, per-epoch train metrics and tables), --resume, infer
-    with --dump-tracks and --log-dir, the calibration modes, the refused
-    flags: the port's msnet app on --synthetic --debug on the CPU."""
+    with --dump-tracks and --log-dir, the calibration modes, infer
+    --external-eval with no corpus root set, the refused --mesh: the port's
+    msnet app on --synthetic --debug on the CPU."""
     from viterbi_spl_tpu_torch.apps import msnet
 
     ck, log = tmp_path / "ck.pt", tmp_path / "log"
@@ -384,11 +385,16 @@ def test_msnet_app_main_cycle(tmp_path, capsys):
     assert np.isfinite(hva["auto"]["viterbi_mean_oa"]) and np.isfinite(hva["hard"]["viterbi_mean_oa"])
     obs = msnet.main(["sweep-obs", *common])
     assert obs["oa"].shape == (4, 3) and np.all(np.isfinite(obs["oa"]))
-    for flag, item in (("--mesh", "--mesh training"), ("--native-prefetch", "native/"),
-                       ("--external-eval", "--external-eval")):
-        extra = [flag, "data=2"] if flag == "--mesh" else [flag]
-        with pytest.raises(SystemExit, match=item):
-            msnet.main(["train", *common, *extra])
+    for corpus in ("adc04", "mirex05", "mir1k", "rwc"):
+        monkeypatch.delenv(corpus, raising=False)
+    capsys.readouterr()
+    ext = msnet.main(["infer", *common, "--external-eval"])
+    assert "--external-eval: no external corpus roots set (adc04/mirex05/mir1k/rwc)" \
+        in capsys.readouterr().out
+    assert [k for k in ext if k != "state"] == ["validation", "test"]
+    assert ext["test"]["viterbi_mean_oa"] == out["test"]["viterbi_mean_oa"]
+    with pytest.raises(SystemExit, match="queue 1 item 5, '--mesh training with dist/tp.py'"):
+        msnet.main(["train", *common, "--mesh", "data=2"])
 
 
 def test_tonet_main_backbone_checkpoint(tmp_path, monkeypatch):

@@ -198,8 +198,9 @@ def test_hard_vs_auto_and_obs_sweep_match_jax(rng, pair):
 def test_imm_app_main_matches_jax(monkeypatch):
     """`eval --synthetic --debug --original --calibrate-threshold` through
     both apps' main, the port's NMF from the JAX package's draws: the same
-    OAs of the three methods and the same calibrated threshold.
-    --external-eval exits naming the later slice."""
+    OAs of the three methods and the same calibrated threshold. With
+    --external-eval and no corpus root set, the JAX app's outputs and no
+    corpus keys."""
     patch_fits_to_jax_draws(monkeypatch)
     argv = ["eval", "--synthetic", "--debug", "--original", "--calibrate-threshold"]
     got = TA.main(argv + ["--device", "cpu"])
@@ -209,8 +210,13 @@ def test_imm_app_main_matches_jax(monkeypatch):
     assert got["original"]["oas"] == pytest.approx(want["original"]["oas"], abs=1e-6)
     assert got["calibration"]["best_threshold"] == want["calibration"]["best_threshold"]
     np.testing.assert_array_equal(got["calibration"]["va"], want["calibration"]["va"])
-    with pytest.raises(SystemExit, match="later slice"):
-        TA.main(["eval", "--synthetic", "--external-eval", "--device", "cpu"])
+    for corpus in ("adc04", "mirex05", "mir1k", "rwc"):
+        monkeypatch.delenv(corpus, raising=False)
+    argv = ["eval", "--synthetic", "--debug", "--external-eval"]
+    got, want = TA.main(argv + ["--device", "cpu"]), JA.main(argv)
+    assert sorted(got) == sorted(want) and not {"adc04", "mirex05", "mir1k", "rwc"} & set(got)
+    for key in ("raw_mean_oa", "viterbi_mean_oa"):
+        assert got[key] == pytest.approx(want[key], abs=1e-6), key
 
 
 def test_splits_and_vocals_match_jax(tmp_path):

@@ -413,3 +413,35 @@ def test_resume_from_jax_checkpoint_equals_jax_step(tmp_path):
         clear = mu[k].abs() > 1e-2 * mu[k].abs().max()
         d_port, d_jax = t.detach() - before[k], want_p[k] - before[k]
         assert float(((d_port - d_jax).abs() * clear).max()) <= 1e-6, k
+
+
+def test_bf16_train_step_keeps_f32_params():
+    """`--bf16` training (tests/test_precision.py:66's template): a msnet
+    train step through make_train_step with compute_dtype bfloat16 runs its
+    convolutions in bfloat16, has a finite loss, and its gradients,
+    BatchNorm statistics and params stay float32 (the statistics updated by
+    the step)."""
+    cfg = dataclasses.replace(t_msnet.config(), compute_dtype=torch.bfloat16)
+    model, params, stats = TC.init_model(cfg, seed=0, device="cpu")
+    opt = TC.make_optimizer(cfg, model, 8)
+    step = TC.make_train_step(cfg, model)
+    from viterbi_spl_tpu_torch.models.layers import Conv
+
+    conv_dtypes = set()
+    hooks = [m.register_forward_hook(lambda m, i, o: conv_dtypes.add(o.dtype))
+             for m in model.modules() if isinstance(m, Conv)]
+    x = torch.randn((2, 8, 320, 3), generator=torch.Generator().manual_seed(0))
+    notes = torch.from_numpy(np.where(np.arange(8) % 3 == 0, 0.0, 60.0).astype(np.float32))
+    before = {k: p.detach().clone() for k, p in params.items()}
+    stats_before = {k: v.clone() for k, v in stats.items()}
+    _, new_stats, _, loss, _ = step(params, stats, opt, (x, notes.expand(2, 8)), 0, 0.5)
+    for h in hooks:
+        h.remove()
+    assert conv_dtypes == {torch.bfloat16}
+    assert loss.dtype == torch.float32 and np.isfinite(float(loss))
+    for k, p in params.items():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, k
+        assert torch.isfinite(p.grad).all(), k
+    assert any(not torch.equal(p, before[k]) for k, p in params.items())
+    assert all(v.dtype == torch.float32 for v in new_stats.values())
+    assert any(not torch.equal(v, stats_before[k]) for k, v in new_stats.items())

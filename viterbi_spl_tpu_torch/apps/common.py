@@ -463,17 +463,14 @@ def run_inference(cfg: AppConfig, model, dataset, setup) -> dict:
     return evaluate_posteriorgrams(setup, tracks_for_evaluation(cfg, model, dataset))
 
 
-def _not_ported(flag: str, item: str):
-    raise SystemExit(f"{flag} is not ported yet: it waits for ROADMAP.md's queue item "
-                     f"'{item}'")
-
-
 def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
-             model_kwargs: dict | None = None):
+             model_kwargs: dict | None = None,
+             build_external_datasets: Callable | None = None):
     """The family app's CLI: train, infer, or a calibration mode, with the
     JAX package's modes and flags, and --device. model_kwargs: the model's
     constructor arguments, written into the checkpoint (tonet's --backbone
-    and --mode)."""
+    and --mode). build_external_datasets(debug, device): the family's
+    external evaluation corpora, for infer --external-eval."""
     ap = argparse.ArgumentParser(description=f"{cfg.family.name} app")
     ap.add_argument(
         "mode",
@@ -495,7 +492,10 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
     ap.add_argument("--hard-threshold", type=float, default=0.5,
                     help="fixed threshold for hard-vs-auto mode")
     ap.add_argument("--external-eval", action="store_true",
-                    help="not ported yet (the external corpus readers)")
+                    help="infer mode: additionally evaluate every external "
+                         "corpus whose env root is set (adc04/mirex05/"
+                         "mir1k/rwc — the reference evaluates each family "
+                         "on all of them, dcnet/softmax_viterbi.py:860-1503)")
     ap.add_argument("--log-dir", default=None)
     ap.add_argument("--tensorboard", action="store_true",
                     help="mirror --log-dir scalars/tables into TensorBoard "
@@ -504,7 +504,10 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
                     help="directory for per-track piano-roll figures + npz "
                          "dumps (the dcnet/lontano.py analysis outputs)")
     ap.add_argument("--native-prefetch", action="store_true",
-                    help="not ported yet (the C++ prefetch ring)")
+                    help="train mode: assemble batches on the C++ prefetch "
+                         "ring's threads (native/prefetch.py); datasets "
+                         "with no full-length snippet use the Python "
+                         "pipeline")
     ap.add_argument("--bf16", action="store_true",
                     help="mixed precision: run the model's convs/denses/"
                          "LSTMs in bfloat16; params, BatchNorm "
@@ -515,11 +518,8 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     args = ap.parse_args(argv)
     if args.mesh:
-        _not_ported("--mesh", "--mesh training with dist/tp.py")
-    if args.native_prefetch:
-        _not_ported("--native-prefetch", "native/")
-    if args.external_eval:
-        _not_ported("--external-eval", "--external-eval")
+        raise SystemExit("--mesh is not ported yet: it waits for ROADMAP.md's queue 1 "
+                         "item 5, '--mesh training with dist/tp.py'")
     if args.bf16:
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     dev = resolve_device(args.device)
@@ -567,9 +567,18 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
 
         reporter = Reporter(args.log_dir, tensorboard=args.tensorboard)
 
+    eval_sets = {s: datasets[s] for s in ("validation", "test")}
+    if args.external_eval:
+        if build_external_datasets is None:
+            raise SystemExit("external eval not wired for this family yet")
+        external = build_external_datasets(debug=args.debug, device=dev)
+        if not external:
+            print("--external-eval: no external corpus roots set "
+                  "(adc04/mirex05/mir1k/rwc)")
+        eval_sets.update(external)
+
     outputs = dict(state=state)
-    for split in ("validation", "test"):
-        dataset = datasets[split]
+    for split, dataset in eval_sets.items():
         out = run_inference(cfg, model, dataset, setup)
         outputs[split] = out
         print(
@@ -587,29 +596,51 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
     return outputs
 
 
-def training_batches(cfg: AppConfig, dataset, rng: np.random.Generator, device):
+def training_batches(cfg: AppConfig, dataset, rng: np.random.Generator, device,
+                     native_prefetch: bool = False):
     """The training batch stream: batch_size snippets drawn from the
     shuffled snippet stream, the full-length ones kept (or the first, when
     none is full: --debug tracks are shorter than dcnet's and msnet's
     1,200-frame snippets), each batch as (spec, notes) tensors on
     `device` — the JAX app's stream, draw for draw. On a card the batch is
-    staged in pinned memory and copied without waiting for the card."""
+    staged in pinned memory and copied without waiting for the card.
+
+    native_prefetch: the batches come from the C++ prefetch ring
+    (native/prefetch.py: full-length snippets only, in the same per-epoch
+    permutation), as owned copies, which the pinned, non-blocking copy may
+    outlive. A dataset with no full-length snippet falls back to the
+    Python pipeline, with the JAX app's message."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
-    def put(arrays):
-        t = torch.from_numpy(np.stack(arrays))
+    def put(array):
+        t = torch.from_numpy(array)
         return t.pin_memory().to(device, non_blocking=True) if pin else t.to(device)
 
-    snippets = training_snippets(dataset, cfg.snippet_len, rng)
-    while True:
-        raw = [next(snippets) for _ in range(cfg.batch_size)]
-        items = [i for i in raw if len(i["notes"]) == cfg.snippet_len] or raw[:1]
-        yield put([i["spectrogram"] for i in items]), put([i["notes"] for i in items])
+    if native_prefetch:
+        from ..native.prefetch import SnippetPrefetcher
+
+        try:
+            prefetcher = SnippetPrefetcher(dataset, cfg.snippet_len, cfg.batch_size, rng)
+        except ValueError as e:
+            print(f"native prefetch unavailable ({e}); using the Python pipeline")
+        else:
+            return ((put(spec), put(notes)) for spec, notes in prefetcher)
+
+    def python_batches():
+        snippets = training_snippets(dataset, cfg.snippet_len, rng)
+        while True:
+            raw = [next(snippets) for _ in range(cfg.batch_size)]
+            items = [i for i in raw if len(i["notes"]) == cfg.snippet_len] or raw[:1]
+            yield (put(np.stack([i["spectrogram"] for i in items])),
+                   put(np.stack([i["notes"] for i in items])))
+
+    return python_batches()
 
 
 def _train(cfg, args, trainer, state, datasets, steps_per_epoch, dev):
-    batches = training_batches(cfg, datasets["training"], np.random.default_rng(0), dev)
+    batches = training_batches(cfg, datasets["training"], np.random.default_rng(0), dev,
+                               native_prefetch=args.native_prefetch)
     reporter = None
     if args.log_dir:
         from ..harness.reporting import Reporter
@@ -687,6 +718,11 @@ def dump_analysis_tracks(cfg, model, dataset, setup, out_dir):
         )
 
 
+# the 8 kHz families estimate on the 10 ms grid: their labels are resampled
+# to it
+TEN_MS_FAMILIES = ("ftanet", "jdc", "tonet")
+
+
 def medleydb_datasets(family: str, debug: bool = False, device=None,
                       labels: str = "m2m3") -> dict[str, TrackDataset]:
     """The real MedleyDB splits through the family's front-end on `device`
@@ -705,7 +741,7 @@ def medleydb_datasets(family: str, debug: bool = False, device=None,
     from ..data.vocals import is_vocals_from_sections
     from ..io.wav import load_wav
 
-    ten_ms = family in ("ftanet", "jdc", "tonet")
+    ten_ms = family in TEN_MS_FAMILIES
 
     def spec_fn(tid):
         wav = os.path.join(os.environ["medleydb"], tid, tid + "_MIX.wav")
@@ -726,3 +762,132 @@ def medleydb_datasets(family: str, debug: bool = False, device=None,
                            max_length_diff=2 if ten_ms else 1)
         for name, tids in splits.items()
     }
+
+
+def external_datasets(family: str, debug: bool = False, device=None) -> dict[str, TrackDataset]:
+    """The external evaluation corpora (adc04/mirex05/mir1k/rwc, whichever
+    roots are set) through the family's front-end on `device`
+    (cli/transcribe.py::features_from_samples, as `medleydb_datasets`), at
+    the family's sample rate, with 10 ms labels for the 8 kHz families:
+    each family's build_external_datasets."""
+    from ..cli.transcribe import FAMILY_SR, features_from_samples
+
+    return build_external_eval_datasets(
+        lambda samples: features_from_samples(family, samples, device=device),
+        sr=FAMILY_SR[family], labels_on_10ms=family in TEN_MS_FAMILIES, debug=debug,
+    )
+
+
+def build_external_eval_datasets(
+    spec_fn: Callable[[np.ndarray], np.ndarray],
+    sr: int,
+    labels_on_10ms: bool = False,
+    debug: bool = False,
+    corpora: tuple[str, ...] | None = None,
+) -> dict[str, TrackDataset]:
+    """Evaluation datasets beyond MedleyDB (the reference evaluates every
+    family on adc04/mirex05/mir1k/rwc as well; dcnet/softmax_viterbi.py
+    §TFDatasetForAdc04.. ForRWC). `spec_fn` maps raw samples (at `sr`) to
+    features; labels are resampled to 10 ms when the family uses that hop.
+    Only corpora whose env-var roots are set are returned; `corpora`
+    restricts the set (the imm harness evaluates adc04/mirex05/mir1k but
+    not rwc, imm/main_imm.py). The readers and the resampling are the JAX
+    package's, in NumPy; `spec_fn` computes where it will (the families'
+    front-ends on their device)."""
+    import os
+    import wave
+    from math import gcd
+
+    def wanted(name):
+        return corpora is None or name in corpora
+
+    from ..data import adc04_track_ids, mir1k_track_ids, mirex05_track_ids
+    from ..data.labels import (
+        adc04_label,
+        mir1k_label,
+        mirex05_label,
+        resample_notes_to_10ms,
+        rwc_label,
+        rwc_rec_files,
+    )
+    from ..io.wav import load_aiff, load_wav, resample_poly
+
+    def maybe_10ms(lb):
+        if labels_on_10ms:
+            lb["notes"] = resample_notes_to_10ms(lb["notes"])
+        return lb
+
+    out: dict[str, TrackDataset] = {}
+
+    if wanted("adc04") and os.environ.get("adc04"):
+        tids = adc04_track_ids()[: 2 if debug else None]
+        root = os.environ["adc04"]
+        out["adc04"] = TrackDataset(
+            tids,
+            lambda t: spec_fn(load_wav(os.path.join(root, t + ".wav"), sr=sr)[0]),
+            lambda t: maybe_10ms(adc04_label(t)),
+            max_length_diff=2,
+        )
+
+    if wanted("mirex05") and os.environ.get("mirex05"):
+        tids = mirex05_track_ids()[: 2 if debug else None]
+        root = os.environ["mirex05"]
+        out["mirex05"] = TrackDataset(
+            tids,
+            lambda t: spec_fn(load_wav(os.path.join(root, t + ".wav"), sr=sr)[0]),
+            lambda t: maybe_10ms(mirex05_label(t)),
+            max_length_diff=2,
+            # the reference pads whichever side is short for mirex05
+            # (dcnet/main.py:1055-1060)
+            pad_short_notes=True,
+        )
+
+    if wanted("mir1k") and os.environ.get("mir1k"):
+        root = os.environ["mir1k"]
+        tids = mir1k_track_ids()[: 2 if debug else None]
+
+        def mir1k_lb(t):
+            with wave.open(
+                os.path.join(root, "Wavfile", t + ".wav"), "rb"
+            ) as fh:
+                n = fh.getnframes()
+            return maybe_10ms(mir1k_label(t, n))
+
+        out["mir1k"] = TrackDataset(
+            tids,
+            lambda t: spec_fn(
+                load_wav(os.path.join(root, "Wavfile", t + ".wav"), sr=sr)[0]
+            ),
+            mir1k_lb,
+            max_length_diff=2,
+            # the .pv grid undershoots the audio; the reference zero-pads
+            # short labels for mir1k (dcnet/softmax_viterbi.py:1262-1268)
+            pad_short_notes=True,
+        )
+
+    if wanted("rwc") and os.environ.get("rwc"):
+        rec_files = rwc_rec_files()
+        n = 2 if debug else len(rec_files)
+
+        def rwc_spec(t):
+            samples, file_sr = load_aiff(rec_files[int(t)])
+            if file_sr != sr:
+                g = gcd(sr, file_sr)
+                samples = resample_poly(samples, sr // g, file_sr // g).astype(
+                    np.float32
+                )
+            return spec_fn(samples)
+
+        def rwc_lb(t):
+            samples, file_sr = load_aiff(rec_files[int(t)])
+            frames_10ms = (len(samples) + file_sr // 100 - 1) // (file_sr // 100)
+            return maybe_10ms(rwc_label(int(t), frames_10ms))
+
+        out["rwc"] = TrackDataset(
+            [str(i) for i in range(n)], rwc_spec, rwc_lb, max_length_diff=2,
+            # the reference zero-pads notes when they undershoot by one
+            # frame (dcnet/main.py:1507-1512)
+            pad_short_notes=True,
+        )
+
+    return out

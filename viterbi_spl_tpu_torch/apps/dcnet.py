@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from ..families import family_spec
 from ..models import DCNet, dcnet_loss
-from .common import AppConfig, app_main, medleydb_datasets
+from .common import AppConfig, app_main, external_datasets, medleydb_datasets
 
 
 def config() -> AppConfig:
@@ -36,8 +36,15 @@ def build_real_datasets(debug: bool = False, device=None):
     return medleydb_datasets("dcnet", debug, device)
 
 
+def build_external_datasets(debug: bool = False, device=None):
+    """adc04/mirex05/mir1k/rwc on the NSGT front-end (44.1 kHz; dcnet/main.py
+    TFDatasetForAdc04..ForRWC)."""
+    return external_datasets("dcnet", debug, device)
+
+
 def main(argv=None):
-    return app_main(config(), build_real_datasets, argv)
+    return app_main(config(), build_real_datasets, argv,
+                    build_external_datasets=build_external_datasets)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ..families import family_spec
 from ..models import FTANet, softmax_smoothed_loss
-from .common import AppConfig, app_main, medleydb_datasets
+from .common import AppConfig, app_main, external_datasets, medleydb_datasets
 
 
 def config() -> AppConfig:
@@ -33,8 +33,15 @@ def build_real_datasets(debug: bool = False, device=None):
     return medleydb_datasets("ftanet", debug, device)
 
 
+def build_external_datasets(debug: bool = False, device=None):
+    """adc04/mirex05/mir1k/rwc on the ftanet CFP front-end (8 kHz) with 10 ms
+    labels (ftanet/viterbi_performance.py dataset classes)."""
+    return external_datasets("ftanet", debug, device)
+
+
 def main(argv=None):
-    return app_main(config(), build_real_datasets, argv)
+    return app_main(config(), build_real_datasets, argv,
+                    build_external_datasets=build_external_datasets)
 
 
 if __name__ == "__main__":

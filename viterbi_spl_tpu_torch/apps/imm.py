@@ -155,8 +155,10 @@ def main(argv=None):
                          "(HF0 + analytic transition + cumulative-energy "
                          "voicing, imm/tf_imm.py:680-776)")
     ap.add_argument("--external-eval", action="store_true",
-                    help="also evaluate on adc04/mirex05/mir1k (not ported yet: "
-                         "the external corpus readers come in a later slice)")
+                    help="also evaluate on adc04/mirex05/mir1k (whichever "
+                         "env roots are set): the corpora the reference's "
+                         "imm harness covers (imm/main_imm.py); per-track "
+                         "NMF fits like the mdb path")
     ap.add_argument("--calibrate-threshold", action="store_true",
                     help="sweep the log-energy voicing threshold over the "
                          "validation split and report the best: the "
@@ -167,10 +169,6 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
-    if args.external_eval:
-        raise SystemExit("--external-eval is not ported yet: it needs "
-                         "apps/common.build_external_eval_datasets and the external "
-                         "corpus readers, which come in a later slice of the port")
 
     if args.synthetic:
         cfg = debug_imm_config() if args.debug else IMMConfig()
@@ -225,6 +223,8 @@ def main(argv=None):
     setup = build_setup(imm, stats_notes=stats_notes)
     out = evaluate_posteriorgrams(setup, tracks)
     print(f"thresholding OA {out['raw_mean_oa']:.4f}, viterbi OA {out['viterbi_mean_oa']:.4f}")
+    if args.external_eval:
+        out.update(external_eval(imm, setup, args.debug, args.original))
     if args.original:
         orig = evaluate_imm_original(imm, tracks)
         out["original"] = orig
@@ -237,6 +237,49 @@ def main(argv=None):
             f"(prob {1.0 / (1.0 + np.exp(-best)):.2f}); "
             f"reference constant 2.442347 = logit(0.92)"
         )
+    return out
+
+
+def external_eval(imm: IMM, setup: DecoderSetup, debug: bool, original: bool) -> dict:
+    """The reference's imm harness on adc04/mirex05/mir1k (imm/main_imm.py;
+    NOT rwc), whichever env roots are set, with per-recording NMF fits ->
+    {corpus: evaluate_posteriorgrams' result, with "original" when asked}.
+    The imm "feature" for build_external_eval_datasets IS the log-energy
+    logits, which land on the corpora's 256-hop label grid. One call of it
+    per corpus, so that each track's spectrogram and fit are kept in
+    call order when the 'original' method needs them
+    (imm/original_adc04_performance.py decodes the raw HF0 per track)."""
+    from .common import build_external_eval_datasets
+
+    out = {}
+    for corpus in ("adc04", "mirex05", "mir1k"):
+        aux: list[dict] = []
+
+        def feature(samples, _aux=aux):
+            SX = imm.power_spectrogram(samples)
+            fit = imm.fit(SX, seed=0)
+            if original:
+                _aux.append(dict(SX=SX, fit=fit))
+            return imm_pitch_logits(imm.logits_from_fit(fit, SX))
+
+        ext = build_external_eval_datasets(feature, sr=imm.config.fs, debug=debug,
+                                           corpora=(corpus,))
+        if corpus not in ext:
+            continue
+        tracks = [
+            dict(logits=np.asarray(t.spectrogram), notes=np.asarray(t.notes),
+                 original=dict(times=np.asarray(t.original_times),
+                               freqs=np.asarray(t.original_freqs)),
+                 **(aux[i] if original else {}))
+            for i, t in enumerate(ext[corpus].tracks)
+        ]
+        res = evaluate_posteriorgrams(setup, tracks)
+        out[corpus] = res
+        print(f"{corpus}: thresholding OA {res['raw_mean_oa']:.4f}, "
+              f"viterbi OA {res['viterbi_mean_oa']:.4f}")
+        if original:
+            res["original"] = evaluate_imm_original(imm, tracks)
+            print(f"{corpus}: original OA {res['original']['mean_oa']:.4f}")
     return out
 
 

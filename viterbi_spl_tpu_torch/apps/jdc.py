@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from ..families import family_spec
 from ..models import JDC, jdc_loss
-from .common import AppConfig, app_main, medleydb_datasets
+from .common import AppConfig, app_main, external_datasets, medleydb_datasets
 
 
 def _loss(notes, out):
@@ -43,8 +43,15 @@ def build_real_datasets(debug: bool = False, device=None):
     return medleydb_datasets("jdc", debug, device)
 
 
+def build_external_datasets(debug: bool = False, device=None):
+    """adc04/mirex05/mir1k/rwc on the jdc STFT front-end (8 kHz) with 10 ms
+    labels (jdc/kum_m2m3.py dataset classes)."""
+    return external_datasets("jdc", debug, device)
+
+
 def main(argv=None):
-    return app_main(config(), build_real_datasets, argv)
+    return app_main(config(), build_real_datasets, argv,
+                    build_external_datasets=build_external_datasets)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from ..families import family_spec
 from ..models import MSNet, softmax_smoothed_loss
-from .common import AppConfig, app_main, medleydb_datasets
+from .common import AppConfig, app_main, external_datasets, medleydb_datasets
 
 
 def config() -> AppConfig:
@@ -31,8 +31,15 @@ def build_real_datasets(debug: bool = False, device=None):
     return medleydb_datasets("msnet", debug, device)
 
 
+def build_external_datasets(debug: bool = False, device=None):
+    """adc04/mirex05/mir1k/rwc evaluation sets on the msnet CFP front-end
+    (44.1 kHz; the reference's TFDatasetForAdc04..ForRWC, msnet/hsieh_m2m3.py)."""
+    return external_datasets("msnet", debug, device)
+
+
 def main(argv=None):
-    return app_main(config(), build_real_datasets, argv)
+    return app_main(config(), build_real_datasets, argv,
+                    build_external_datasets=build_external_datasets)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ import numpy as np
 
 from ..families import family_spec
 from ..models import TONet, tonet_loss
-from .common import AppConfig, app_main, medleydb_datasets
+from .common import AppConfig, app_main, external_datasets, medleydb_datasets
 
 
 def tonet_lr_schedule(base_lr: float, steps_per_epoch: int):
@@ -70,6 +70,12 @@ def build_real_datasets(debug: bool = False, device=None, labels: str = "m2m3"):
     return medleydb_datasets("tonet", debug, device, labels=labels)
 
 
+def build_external_datasets(debug: bool = False, device=None):
+    """adc04/mirex05/mir1k/rwc on the tonet CFP front-end ([T, 3, 360]
+    layout, 8 kHz) with 10 ms labels (tonet/main_shaun.py dataset classes)."""
+    return external_datasets("tonet", debug, device)
+
+
 def main(argv=None):
     """TONet app with the reference's ablation axes: --backbone and --mode
     (tonet/model/tonet.py:24-265) become the model's constructor arguments
@@ -102,7 +108,8 @@ def main(argv=None):
     def build_datasets(debug=False, device=None):
         return build_real_datasets(debug=debug, device=device, labels=known.labels)
 
-    return app_main(config(), build_datasets, rest, model_kwargs=model_kwargs)
+    return app_main(config(), build_datasets, rest, model_kwargs=model_kwargs,
+                    build_external_datasets=build_external_datasets)
 
 
 if __name__ == "__main__":

@@ -1,3 +1,4 @@
+from .fake_corpus import generate_fake_corpus
 from .registry import Track, TrackDataset, dataset_roots
 from .snippets import chunk_fixed, gen_split_list, inference_snippets, training_snippets
 from .splits import (
@@ -12,6 +13,7 @@ __all__ = [
     "Track",
     "TrackDataset",
     "dataset_roots",
+    "generate_fake_corpus",
     "chunk_fixed",
     "gen_split_list",
     "inference_snippets",
