@@ -5,8 +5,10 @@ paths (wav -> CFP -> TONet -> decode; wav -> NSGT -> DCNet -> decode; wav
 -> STFT -> imm's NMF -> decode, and its --separate pass), the training
 path (apps.tonet train -> checkpoint -> infer and sweep-obs) and the
 real-data chains on a fake corpus (train -> infer --external-eval, the
-native prefetch ring, imm's external corpora) end to end through their
-entry points, and times the kernels at full width.
+native prefetch ring, imm's external corpora), mesh training and the
+multi-process runtime (train over [cuda:0] * 4 meshes -> infer; two
+processes under gloo) end to end through their entry points, and times
+the kernels at full width.
 
     python3 chip_smoke.py [--baseline DIR]
 
@@ -130,6 +132,24 @@ Phases (one JSON line each):
      mirex05 and mir1k, no rwc, the fits' ms a corpus. The native CPU
      decoder's frames/s on the host (361 states), equal to the oracle.
      Times printed beside the card's name and power limit.
+  3i. (after 3h) mesh training and the multi-process runtime
+     (phase_mesh_train): TONet at its published width (3g's configuration,
+     batch 4 x 128 frames), 1 epoch of 3 steps through apps.common._train
+     on the card, then over meshes of [cuda:0] * 4 with data=4 and
+     data=2,model=2 (BatchNorm on the global batch's statistics, the
+     global dropout masks; with model=2 params, Adam's moments and the
+     averages split by the tp rule): each step's loss against the single
+     run's (the first within MESH_FIRST_RTOL, later ones within
+     MESH_LOSS_RTOL), the BatchNorm averages after step 1, the sharded
+     leaves; the data=2,model=2 checkpoint in the single-device layout,
+     restored by infer with no mesh (counts set to 0 just before: exactly
+     K1/K2). Two processes on cuda:0 joined by initialize_distributed
+     (gloo): the all-reduce, decode_tracks_sharded (K3 and K4 twice in each
+     process, its tracks equal to the oracle's), tp training with the
+     barriered checkpoint and resume within the Adam bound, BatchNorm
+     across the processes. ms per step single and on each mesh, the mesh's
+     gradient reduction and gather ms, beside the card's name and power
+     limit.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
      with K4's segment length and the frames its seams re-chased); with
@@ -156,8 +176,9 @@ Phases (one JSON line each):
      against its plain version, time, plain-version time, bound and what
      bounds it (and the phase 4d sums), with its launches on the fused,
      transcription (3e), 44.1 kHz (3f: dcnet, imm with --separate),
-     training (3g: infer, sweep-obs) and real-data (3h: tonet and msnet
-     infer --external-eval, imm eval --external-eval) paths.
+     training (3g: infer, sweep-obs), real-data (3h: tonet and msnet
+     infer --external-eval, imm eval --external-eval) and mesh (3i: infer
+     on the mesh checkpoint, the two-process decode) paths.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -1975,6 +1996,220 @@ def phase_real_data(dev, smi: str, tmp: Path) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------
+# Mesh training and the multi-process runtime: TONet at its published width
+# trained through apps.common._train (what app_main calls) over meshes of
+# [cuda:0] * 4 against the single-device run, the mesh checkpoint's infer
+# (K1/K2) with no mesh, and two processes on cuda:0 under gloo
+# (dist/workers.py: the all-reduce, decode_tracks_sharded on K3/K4, tp
+# training with checkpoint and resume, BatchNorm across processes).
+# ----------------------------------------------------------------------
+
+MESH_STEPS, MESH_TIMED_STEPS = 3, 3
+MESH_CASES = (("data=4", 4, 1), ("data=2,model=2", 2, 2))
+# each mesh run against the single-device run from the same seed on the card
+# (the same weights, full batches and dropout masks): the first step's loss
+# differs only by sum orders (convolutions over shares, BatchNorm's sums),
+# held within MESH_FIRST_RTOL; from the first update on the runs' params
+# differ by up to 2 lr where a gradient element near 0 took the other sign
+# (float32 TONet gradients are ill-conditioned, PERF.md §6), so the later
+# steps' losses are held within MESH_LOSS_RTOL; the BatchNorm averages
+# after step 1 within TRAIN_BN_TOL (bn_error). Measured by this phase on an
+# H100 80GB HBM3 at 700 W (PERF.md §6): the first step 1.1e-7 (data=4) and
+# 4.5e-7 (data=2,model=2), the later steps up to 3.4e-5 and 4.1e-5, the
+# BatchNorm averages 1.2e-7 and 2.4e-7; on the CPU at attn_dim 32 the later
+# steps reached 7.7e-5. MESH_LOSS_RTOL is about four times the largest.
+MESH_FIRST_RTOL = 1e-5
+MESH_LOSS_RTOL = 3e-4
+MP_CHECKS = "decode,ckpt,tp,bn"
+
+
+def mesh_train_run(dev, cfg, datasets, ckpt: Path, mesh=None) -> dict:
+    """TONet for one epoch of MESH_STEPS steps through apps.common._train,
+    on `dev` or over `mesh`, from seed 0, batches of full-length snippets
+    (a mesh's; the single run draws the same ones), each step's loss read
+    as it ends and the BatchNorm averages after step 1 kept; a checkpoint
+    at ckpt."""
+    from viterbi_spl_tpu_torch.apps import common as AC
+    from viterbi_spl_tpu_torch.dist.train import MeshOptimizer
+    from viterbi_spl_tpu_torch.harness.train import Trainer, TrainState
+
+    model, params, stats = AC.init_model(cfg, seed=0, device=dev)
+    if mesh is None:
+        opt = AC.make_optimizer(cfg, model, MESH_STEPS)
+        step = AC.make_train_step(cfg, model)
+    else:
+        opt = MeshOptimizer(model, mesh, lambda ps: AC.make_optimizer(cfg, None, MESH_STEPS,
+                                                                      params=ps))
+        step = AC.make_mesh_train_step(cfg, opt)
+    losses, bn = [], {}
+
+    def recorded(params, batch_stats, opt_state, batch, step_i, threshold):
+        out = step(params, batch_stats, opt_state, batch, step_i, threshold)
+        losses.append(float(out[3]))
+        if step_i == 0:
+            bn.update(_host64(batch_stats))
+        return out
+
+    trainer = Trainer(recorded, AC.make_validate(cfg, model, datasets["validation"]),
+                      ckpt_path=ckpt, patience_epochs=5, max_epochs=1, family="tonet")
+    args = argparse.Namespace(native_prefetch=False, log_dir=None, tensorboard=False,
+                              resume=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = AC._train(cfg, args, trainer, TrainState(params, stats, opt_state=opt), datasets,
+                      MESH_STEPS, dev, full_batches=True)
+    torch.cuda.synchronize()
+    return {"state": state, "losses": losses, "bn": bn, "opt": opt, "step": step,
+            "params": params, "stats": stats, "train_seconds": time.perf_counter() - t0}
+
+
+def mesh_step_times(run, cfg, train_set, dev) -> dict:
+    """MESH_TIMED_STEPS more steps after one warm-up, each between CUDA
+    events (median ms); on a mesh, then its gradient reduction and its
+    gather alone, each the median of MESH_TIMED_STEPS calls between CUDA
+    events (the last step's gradients re-reduced, its values re-gathered:
+    the same work as inside a step)."""
+    from viterbi_spl_tpu_torch.apps import common as AC
+
+    batches = AC.training_batches(cfg, train_set, np.random.default_rng(1), dev,
+                                  full_batches=True)
+    ms = []
+    for s in range(1 + MESH_TIMED_STEPS):
+        batch = next(batches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = run["step"](run["params"], run["stats"], run["opt"], batch, MESH_STEPS + s, 0.5)[3]
+        end.record()
+        end.synchronize()
+        check(np.isfinite(float(loss)), "mesh: finite loss in the timed steps")
+        if s:
+            ms.append(start.elapsed_time(end))
+    rec = {"step_ms": float(np.median(ms)), "step_ms_all": ms}
+    opt = run["opt"]
+    if hasattr(opt, "reduce_grads"):
+        for name, fn in (("reduce_ms", opt.reduce_grads), ("gather_ms", opt.gather)):
+            rec[name] = cuda_ms(fn, MESH_TIMED_STEPS)
+    return rec
+
+
+def phase_mesh_train(dev, smi: str, tmp: Path) -> dict:
+    """Mesh training and the multi-process runtime on the card (phase 3i).
+    TONet at its published width (phase 3g's configuration), batch 4 x 128
+    frames, --synthetic, one epoch of MESH_STEPS steps: once on the card,
+    then with data=4 and data=2,model=2 meshes over [cuda:0] * 4 (the
+    machine has one card; `train --mesh` itself exits with fewer CUDA
+    devices than the mesh). Checks: each step's loss against the single
+    run's (the first within MESH_FIRST_RTOL, later ones within
+    MESH_LOSS_RTOL), the BatchNorm averages after step 1 within
+    TRAIN_BN_TOL, with model=2 the sharded leaves those of the tp rule and
+    the checkpoint in the single-device layout, restored by infer with no
+    mesh (counts set to 0 just before it: exactly K1/K2, finite OAs). Then
+    two processes on cuda:0 under gloo (dist/workers.py): the all-reduce,
+    decode_tracks_sharded on K3/K4 (each process two shares, counted in
+    the process, its tracks equal to the oracle's), tp training with the
+    barriered checkpoint and resume, BatchNorm across the processes. Times:
+    ms per step single and on each mesh, the mesh's gradient reduction and
+    gather, each beside the card's name and power limit."""
+    from viterbi_spl_tpu_torch.apps import common as AC
+    from viterbi_spl_tpu_torch.apps import tonet as tonet_app
+    from viterbi_spl_tpu_torch.dist.tp import make_tp_mesh, tp_param_specs
+    from viterbi_spl_tpu_torch.dist.workers import spawn
+    from viterbi_spl_tpu_torch.harness.train import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = tonet_app.config()
+    datasets = dict(training=AC.synthetic_dataset(cfg, 6, 2000, 0),
+                    validation=AC.synthetic_dataset(cfg, 3, 2000, 1),
+                    test=AC.synthetic_dataset(cfg, 3, 2000, 2))
+    single = mesh_train_run(dev, cfg, datasets, tmp / "tonet_single.pt")
+    rec = {"phase": "mesh_train", "model": "tonet all/ftanet attn_dim 2048",
+           "batch": cfg.batch_size, "chunk_frames": cfg.snippet_len, "steps": MESH_STEPS,
+           "single": {"losses": single["losses"], "train_seconds": single["train_seconds"],
+                      **mesh_step_times(single, cfg, datasets["training"], dev)}}
+    single_bn, single_losses = single["bn"], single["losses"]
+    del single
+    for label, n_data, n_model in MESH_CASES:
+        devices = [dev] * (n_data * n_model)
+        mesh = (make_tp_mesh(n_data, n_model, devices) if n_model > 1
+                else make_mesh(data=n_data, devices=devices))
+        ckpt = tmp / f"tonet_mesh_{n_data}x{n_model}.pt"
+        run = mesh_train_run(dev, cfg, datasets, ckpt, mesh)
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], single_losses)]
+        bn_err = bn_error(run["bn"], single_bn)
+        case = {"losses": run["losses"], "loss_rel_err": rel, "bn_err_after_step_1": bn_err,
+                "train_seconds": run["train_seconds"]}
+        check(len(rel) == MESH_STEPS and all(np.isfinite(run["losses"])),
+              f"mesh {label}: {MESH_STEPS} finite losses")
+        check(rel[0] <= MESH_FIRST_RTOL,
+              f"mesh {label}: the first step's loss within {MESH_FIRST_RTOL}: {rel}")
+        check(max(rel[1:]) <= MESH_LOSS_RTOL,
+              f"mesh {label}: later steps' losses within {MESH_LOSS_RTOL}: {rel}")
+        check(bn_err <= TRAIN_BN_TOL,
+              f"mesh {label}: BatchNorm averages after step 1 within {TRAIN_BN_TOL}: {bn_err}")
+        opt = run["opt"]
+        if n_model > 1:
+            sharded = sorted(k for k, sh in opt.store.items() if sh.spec is not None)
+            want = tp_param_specs(opt.replicas[0], n_model)
+            check(sharded == sorted(k for k, s in want.items() if s is not None),
+                  f"mesh {label}: the sharded leaves are the tp rule's")
+            case["sharded_leaves"] = len(sharded)
+            case["replicated_leaves"] = sorted(set(opt.store) - set(sharded))
+            ck, family, _ = restore_checkpoint(ckpt)
+            check(family == "tonet" and all(
+                ck.opt_state["state"][i]["exp_avg"].shape == t.shape
+                for i, t in enumerate(ck.params.values())),
+                f"mesh {label}: the checkpoint holds Adam's state in the single-device layout")
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run_counted({"K1", "K2"}, f"tonet infer on the {label} checkpoint",
+                              tonet_app.main, ["infer", "--synthetic", "--ckpt", str(ckpt)])
+            case["infer_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["launches_infer"] = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+            case["infer_oa"] = {s: [out[s]["raw_mean_oa"], out[s]["viterbi_mean_oa"]]
+                                for s in ("validation", "test")}
+            check(all(np.isfinite(v) for s in case["infer_oa"].values() for v in s),
+                  f"mesh {label}: finite OAs from infer")
+        case.update(mesh_step_times(run, cfg, datasets["training"], dev))
+        rec[label] = case
+        del run, opt
+        torch.cuda.empty_cache()
+
+    emit(rec)
+    t0 = time.perf_counter()
+    codes, outs, results = spawn(MP_CHECKS, "cuda", tmp / "multiprocess", timeout=600)
+    rec["two_process_seconds"] = time.perf_counter() - t0
+    check(codes == [0, 0], "two processes on cuda:0: " + "\n---\n".join(outs)[-4000:])
+    rec["two_process"] = results
+    for r in results:
+        check(r["decode"]["launches"] == {"K3": 2, "K4": 2},
+              f"two-process decode: K3/K4 twice in each process: {r['decode']['launches']}")
+    rec["launches_two_process_decode"] = {
+        k: sum(r["decode"]["launches"].get(k, 0) for r in results) for k in KERNEL_INFO}
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "mesh_two_process", **{k: rec[k] for k in (
+        "two_process_seconds", "two_process", "launches_two_process_decode", "phase_seconds")}})
+    lines = [("ms per train step, single device", f"{rec['single']['step_ms']:.2f}")]
+    for label, _, _ in MESH_CASES:
+        case = rec[label]
+        lines += [(f"ms per train step, --mesh {label} on [cuda:0] * 4",
+                   f"{case['step_ms']:.2f}"),
+                  (f"gradient reduction ms, {label}", f"{case['reduce_ms']:.2f}"),
+                  (f"gather ms, {label}", f"{case['gather_ms']:.2f}"),
+                  (f"loss rel err against single, {label}",
+                   ", ".join(f"{e:.3g}" for e in case["loss_rel_err"])),
+                  (f"BatchNorm averages err after step 1, {label}",
+                   f"{case['bn_err_after_step_1']:.3g}")]
+    lines += [("infer ms on the data=2,model=2 checkpoint",
+               f"{rec['data=2,model=2']['infer_ms']:.1f}"),
+              ("two processes on cuda:0 (decode, ckpt, tp, bn) seconds",
+               f"{rec['two_process_seconds']:.1f}"),
+              ("phase seconds", f"{rec['phase_seconds']:.1f}")]
+    for what, value in lines:
+        print(f"mesh phase, {smi}: {what} {value}", flush=True)
+    return rec
+
+
 def phase_streaming(dev) -> dict:
     """StreamingViterbiBatch at tonet 361: 64 streams, 32-frame pushes (320
     ms of audio), lag 128 and lag >= length over 4096 frames of K5's log
@@ -2614,6 +2849,7 @@ def main(argv=None) -> int:
         hi = {"dcnet": phase_dcnet(dev, errs, Path(tmp)), "imm": phase_imm(dev, errs, Path(tmp))}
         train = phase_train(dev, smi, Path(tmp))
         real = phase_real_data(dev, smi, Path(tmp))
+        mesh_train = phase_mesh_train(dev, smi, Path(tmp))
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
@@ -2648,6 +2884,9 @@ def main(argv=None) -> int:
             "launches_on_real_data_path": {"tonet_infer_external": real["launches_tonet"][k],
                                            "msnet_infer_external": real["launches_msnet"][k],
                                            "imm_eval_external": real["launches_imm"][k]},
+            "launches_on_mesh_path": {
+                "infer_mesh_checkpoint": mesh_train["launches_infer"][k],
+                "two_process_decode": mesh_train["launches_two_process_decode"][k]},
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()

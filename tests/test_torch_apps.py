@@ -346,8 +346,8 @@ def test_calibration_modes_match_jax(fam):
 def test_msnet_app_main_cycle(tmp_path, capsys, monkeypatch):
     """train (events, per-epoch train metrics and tables), --resume, infer
     with --dump-tracks and --log-dir, the calibration modes, infer
-    --external-eval with no corpus root set, the refused --mesh: the port's
-    msnet app on --synthetic --debug on the CPU."""
+    --external-eval with no corpus root set, --mesh's exit on tracks shorter
+    than a snippet: the port's msnet app on --synthetic --debug on the CPU."""
     from viterbi_spl_tpu_torch.apps import msnet
 
     ck, log = tmp_path / "ck.pt", tmp_path / "log"
@@ -393,7 +393,9 @@ def test_msnet_app_main_cycle(tmp_path, capsys, monkeypatch):
         in capsys.readouterr().out
     assert [k for k in ext if k != "state"] == ["validation", "test"]
     assert ext["test"]["viterbi_mean_oa"] == out["test"]["viterbi_mean_oa"]
-    with pytest.raises(SystemExit, match="queue 1 item 5, '--mesh training with dist/tp.py'"):
+    # --mesh batches hold full-length snippets only: msnet's 1,200 frames
+    # are longer than the 400-frame --debug tracks (the JAX app's exit)
+    with pytest.raises(SystemExit, match="--mesh: no track has 1200 frames"):
         msnet.main(["train", *common, "--mesh", "data=2"])
 
 

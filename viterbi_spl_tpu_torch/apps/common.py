@@ -12,6 +12,11 @@ e.g. dcnet/softmax_viterbi.py:3377-3602) on top of the harness:
 - Adam under the family's learning-rate schedule,
 - a validation pass producing the 99-point threshold grid and mean OA,
 - the Trainer loop (early stopping + checkpoints + resume),
+- `--mesh data=N[,model=M]`: the same step over a device mesh, the batch
+  in N shares with the global batch's BatchNorm statistics and dropout
+  masks, parameters and Adam's moments split over M with model=M
+  (dist/train.py, dist/tp.py): the single-device loss curve at the same
+  global batch,
 - an inference pass running the dual raw/Viterbi evaluation with HMM
   parameters built on the fly from the validation labels (the decode:
   K1/K2 on the card, every NN family's matrix being banded).
@@ -36,7 +41,10 @@ import numpy as np
 import torch
 
 from ..data import TrackDataset, training_snippets
-from ..data.snippets import chunk_fixed, inference_snippets
+from ..data.snippets import chunk_fixed, inference_snippets, snippet_index
+from ..dist.mesh import make_mesh, mesh_device_list, parse_mesh_spec
+from ..dist.tp import make_tp_mesh
+from ..dist.train import MeshOptimizer
 from ..families import FamilySpec
 from ..harness.evaluate import DecoderSetup, evaluate_posteriorgrams
 from ..harness.train import (
@@ -50,7 +58,7 @@ from ..hmm import params as hmm_params
 from ..metrics.mel_eval import midi_to_hz
 from ..metrics.melody import MelodyMetrics, est_notes_interp, frame_counts
 from ..models.layers import init_params
-from ..utils import resolve_device
+from ..utils import process_index, resolve_device
 
 
 @dataclasses.dataclass
@@ -218,6 +226,25 @@ def _peak_counts(spec: FamilySpec, ref, logits, voicing_logits, thresholds) -> d
     return frame_counts(ref, _est_notes(spec, peak_idx, probs), voicing_probs, thresholds)
 
 
+def _step_counts(cfg: AppConfig, notes, out, threshold, thresholds: dict):
+    """The training-split metric counts of one batch's output, on its
+    device (None without a logits adapter); thresholds caches each
+    (threshold, device)'s [1] tensor (the threshold changes once an
+    epoch)."""
+    if cfg.logits_adapter is None:
+        return None
+    with torch.no_grad():
+        logits = cfg.logits_adapter(out)
+        voicing = None if cfg.voicing_adapter is None else cfg.voicing_adapter(out)
+        key = (threshold, notes.device)
+        if key not in thresholds:
+            thresholds[key] = torch.tensor([threshold], dtype=torch.float32,
+                                           device=notes.device)
+        return _peak_counts(
+            cfg.family, notes.reshape(-1), logits.reshape(-1, logits.shape[-1]),
+            None if voicing is None else voicing.reshape(-1), thresholds[key])
+
+
 def make_train_step(cfg: AppConfig, model):
     """The train step for the Trainer: (params, batch_stats, optimizer,
     batch, step, threshold) -> (params, batch_stats, optimizer, loss,
@@ -229,7 +256,7 @@ def make_train_step(cfg: AppConfig, model):
     gradient (weight decay included)."""
     dev = _device(model)
     pdtype = _param_dtype(model)
-    thresholds = {}  # threshold -> its [1] tensor on the device (it changes once an epoch)
+    thresholds = {}
 
     def train_step(params, batch_stats, opt_state, batch, step, threshold):
         spec, notes = batch
@@ -254,16 +281,7 @@ def make_train_step(cfg: AppConfig, model):
                                           name, wd)
             params[name].grad = grads[name]
         opt_state.step()
-        counts = None
-        if cfg.logits_adapter is not None:
-            with torch.no_grad():
-                logits = cfg.logits_adapter(out)
-                voicing = None if cfg.voicing_adapter is None else cfg.voicing_adapter(out)
-                counts = _peak_counts(
-                    cfg.family, notes.reshape(-1), logits.reshape(-1, logits.shape[-1]),
-                    None if voicing is None else voicing.reshape(-1),
-                    thresholds.setdefault(threshold, torch.tensor(
-                        [threshold], dtype=torch.float32, device=dev)))
+        counts = _step_counts(cfg, notes, out, threshold, thresholds)
         return params, batch_stats, opt_state, loss.detach(), counts
 
     return train_step
@@ -293,17 +311,59 @@ class ScheduledAdam(torch.optim.Adam):
         return super().step(closure)
 
 
-def make_optimizer(cfg: AppConfig, model, steps_per_epoch: int) -> ScheduledAdam:
-    """Adam over the model's trainable params, under the family's own LR
-    schedule keyed by the optimizer's update count (tonet's warm-up/decay,
-    tonet/model/tonet.py:474-490 configure_optimizers), else at
-    cfg.learning_rate."""
+def make_optimizer(cfg: AppConfig, model, steps_per_epoch: int, params=None) -> ScheduledAdam:
+    """Adam over the model's trainable params (or over `params`: a mesh's
+    shards), under the family's own LR schedule keyed by the optimizer's
+    update count (tonet's warm-up/decay, tonet/model/tonet.py:474-490
+    configure_optimizers), else at cfg.learning_rate."""
     if cfg.lr_schedule is not None:
         schedule = cfg.lr_schedule(cfg.learning_rate, steps_per_epoch)
     else:
         def schedule(k, lr=cfg.learning_rate):
             return lr
-    return ScheduledAdam([p for p in model.parameters() if p.requires_grad], schedule)
+    if params is None:
+        params = [p for p in model.parameters() if p.requires_grad]
+    return ScheduledAdam(params, schedule)
+
+
+def make_mesh_train_step(cfg: AppConfig, opt: MeshOptimizer):
+    """make_train_step's step over a mesh (dist/train.py): the batch cut
+    into one contiguous share a data row, each share's forward on its
+    replica (the global batch's BatchNorm statistics and dropout masks),
+    the loss the global mean (l2 regularization added once), one backward,
+    then `opt.step`: the gradients summed over the shares, the weight decay
+    and one Adam update, every replica refreshed. The counts are the
+    shares' summed. params, batch_stats: replica 0's, which validation
+    reads."""
+    pdtype = _param_dtype(opt.replicas[0])
+    thresholds = {}
+
+    def train_step(params, batch_stats, opt_state, batch, step, threshold):
+        opt_state.zero_grad(set_to_none=True)
+
+        def share(i, model, item):
+            dev = opt_state.devices[i]
+            spec, notes = item[0].to(dev, pdtype), item[1].to(dev)
+            if cfg.input_adapter is not None:
+                spec = cfg.input_adapter(spec)
+            out = model(spec, dropout=dropout_generator(step, dev))
+            return cfg.loss_fn(notes, out), _step_counts(cfg, notes, out, threshold, thresholds)
+
+        with _model_math(cfg, opt_state.devices[0]):
+            outs = opt_state.run(share, opt_state.local_shares(*batch))
+            loss = opt_state.share_mean([o[0] for o in outs])
+            if cfg.l2_reg is not None and process_index() == 0:
+                names, scale = cfg.l2_reg
+                loss = loss + l2_regularization(params, names, scale)
+            loss.backward()
+        opt_state.step(weight_decay=cfg.weight_decay)
+        counts = None
+        if outs[0][1] is not None:
+            counts = {k: opt_state.world_sum(sum(o[1][k].to(opt_state.devices[0]) for o in outs))
+                      for k in outs[0][1]}
+        return params, batch_stats, opt_state, opt_state.world_sum(loss.detach()), counts
+
+    return train_step
 
 
 def _forward(cfg: AppConfig, model, batch_stats: bool):
@@ -513,16 +573,34 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
                          "LSTMs in bfloat16; params, BatchNorm "
                          "statistics, losses, and logits stay float32")
     ap.add_argument("--mesh", default=None, metavar="data=N[,model=M]",
-                    help="not ported yet (distributed training)")
+                    help="train mode: distributed training over an N*M-device "
+                         "mesh: the batch shards over the 'data' axis (the "
+                         "global batch's BatchNorm statistics) and, with "
+                         "model=M, parameter/optimizer channel dims shard "
+                         "over the 'model' axis (tensor parallelism, "
+                         "dist/tp.py). N*M CUDA devices, or with --device cpu "
+                         "N*M blocks of the CPU. Requires batch-size "
+                         "divisible by N (raised if not). Same loss curve as "
+                         "single-device at the same global batch (tested).")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh is not ported yet: it waits for ROADMAP.md's queue 1 "
-                         "item 5, '--mesh training with dist/tp.py'")
     if args.bf16:
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    mesh_sizes = parse_mesh_spec(args.mesh, axes=("data", "model")) if args.mesh else None
     dev = resolve_device(args.device)
+    mesh = None
+    if mesh_sizes is not None:
+        n_data, n_model = mesh_sizes["data"], mesh_sizes["model"]
+        devices = mesh_device_list(n_data * n_model, dev,
+                                   f"--mesh data={n_data},model={n_model}")
+        mesh = (make_tp_mesh(n_data, n_model, devices) if n_model > 1
+                else make_mesh(data=n_data, devices=devices))
+        if cfg.batch_size % n_data:
+            new_bs = -(-cfg.batch_size // n_data) * n_data
+            print(f"--mesh data={n_data}: raising batch size "
+                  f"{cfg.batch_size} -> {new_bs} (must divide evenly)")
+            cfg = dataclasses.replace(cfg, batch_size=new_bs)
 
     if args.synthetic:
         n, frames = (2, 400) if args.debug else (6, 2000)
@@ -538,17 +616,24 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
 
     steps_per_epoch = args.steps_per_epoch or max(len(datasets["training"]) * 4, 8)
     model, params, batch_stats = init_model(cfg, model_kwargs, seed=0, device=dev)
-    optimizer = make_optimizer(cfg, model, steps_per_epoch)
+    if args.mode == "train" and mesh is not None:
+        optimizer = MeshOptimizer(model, mesh, lambda ps: make_optimizer(
+            cfg, None, steps_per_epoch, params=ps))
+        step_fn = make_mesh_train_step(cfg, optimizer)
+    else:
+        optimizer = make_optimizer(cfg, model, steps_per_epoch)
+        step_fn = make_train_step(cfg, model)
     state = TrainState(params=params, batch_stats=batch_stats, opt_state=optimizer)
     validate = make_validate(cfg, model, datasets["validation"])
     trainer = Trainer(
-        make_train_step(cfg, model), validate, ckpt_path=args.ckpt,
+        step_fn, validate, ckpt_path=args.ckpt,
         patience_epochs=args.patience, max_epochs=args.epochs,
         family=cfg.family.name, model_kwargs=model_kwargs,
     )
 
     if args.mode == "train":
-        return _train(cfg, args, trainer, state, datasets, steps_per_epoch, dev)
+        return _train(cfg, args, trainer, state, datasets, steps_per_epoch, dev,
+                      full_batches=mesh is not None)
 
     state = trainer.restore(state)
     setup = build_decoder_setup(
@@ -597,13 +682,17 @@ def app_main(cfg: AppConfig, build_real_datasets: Callable | None, argv=None,
 
 
 def training_batches(cfg: AppConfig, dataset, rng: np.random.Generator, device,
-                     native_prefetch: bool = False):
+                     native_prefetch: bool = False, full_batches: bool = False):
     """The training batch stream: batch_size snippets drawn from the
     shuffled snippet stream, the full-length ones kept (or the first, when
     none is full: --debug tracks are shorter than dcnet's and msnet's
     1,200-frame snippets), each batch as (spec, notes) tensors on
     `device` — the JAX app's stream, draw for draw. On a card the batch is
     staged in pinned memory and copied without waiting for the card.
+
+    full_batches (a mesh's sharded batches): draws go on until the batch
+    holds batch_size full-length snippets (the JAX app's redraw); a dataset
+    without one exits, with the JAX app's message.
 
     native_prefetch: the batches come from the C++ prefetch ring
     (native/prefetch.py: full-length snippets only, in the same per-epoch
@@ -627,20 +716,32 @@ def training_batches(cfg: AppConfig, dataset, rng: np.random.Generator, device,
         else:
             return ((put(spec), put(notes)) for spec, notes in prefetcher)
 
+    if full_batches and not any(e - s == cfg.snippet_len
+                                for _, s, e in snippet_index(dataset, cfg.snippet_len)):
+        raise SystemExit(f"--mesh: no track has {cfg.snippet_len} frames; "
+                         "sharded batches need full-length snippets")
+
     def python_batches():
         snippets = training_snippets(dataset, cfg.snippet_len, rng)
         while True:
             raw = [next(snippets) for _ in range(cfg.batch_size)]
-            items = [i for i in raw if len(i["notes"]) == cfg.snippet_len] or raw[:1]
+            items = [i for i in raw if len(i["notes"]) == cfg.snippet_len]
+            if full_batches:
+                while len(items) < cfg.batch_size:
+                    it = next(snippets)
+                    if len(it["notes"]) == cfg.snippet_len:
+                        items.append(it)
+            else:
+                items = items or raw[:1]
             yield (put(np.stack([i["spectrogram"] for i in items])),
                    put(np.stack([i["notes"] for i in items])))
 
     return python_batches()
 
 
-def _train(cfg, args, trainer, state, datasets, steps_per_epoch, dev):
+def _train(cfg, args, trainer, state, datasets, steps_per_epoch, dev, full_batches=False):
     batches = training_batches(cfg, datasets["training"], np.random.default_rng(0), dev,
-                               native_prefetch=args.native_prefetch)
+                               native_prefetch=args.native_prefetch, full_batches=full_batches)
     reporter = None
     if args.log_dir:
         from ..harness.reporting import Reporter

@@ -32,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..dist.mesh import make_mesh
+from ..dist.mesh import make_mesh, mesh_device_list, parse_mesh_spec
 from ..families import family_spec
 from ..harness.evaluate import ALLOWED_VITERBI_METHODS, DecoderSetup
 from ..io import load_array
@@ -60,21 +60,9 @@ def parse_mesh(mesh_arg: str | None, device=None):
     the device is the CPU."""
     if not mesh_arg:
         return None
-    try:
-        kv = dict(part.split("=", 1) for part in mesh_arg.split(","))
-        n_data = int(kv.pop("data", 1))
-    except ValueError:
-        raise SystemExit(
-            f"--mesh: expected comma-separated axis=N (e.g. data=8), got {mesh_arg!r}"
-        )
-    if kv:
-        raise SystemExit(f"--mesh: only data=N is supported, got {kv}")
-    if torch.device(device or "cuda").type == "cpu":
-        return make_mesh(data=n_data, devices=["cpu"] * n_data)
-    n_cuda = torch.cuda.device_count()
-    if n_cuda < n_data:
-        raise SystemExit(f"--mesh data={n_data}: only {n_cuda} CUDA devices")
-    return make_mesh(data=n_data, devices=[torch.device("cuda", i) for i in range(n_data)])
+    n_data = parse_mesh_spec(mesh_arg, axes=("data",))["data"]
+    return make_mesh(data=n_data, devices=mesh_device_list(n_data, device,
+                                                          f"--mesh data={n_data}"))
 
 
 def build_setup(args) -> DecoderSetup:

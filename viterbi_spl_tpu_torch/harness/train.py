@@ -17,13 +17,19 @@ are the model's own tensors (name -> tensor, `split_state_dict`) and its
 opt_state the torch optimizer over them: a step updates them in place and
 hands them back, so that the Trainer's protocol is the JAX package's.
 
-The checkpoint is one file written with torch.save from a single process
-(the JAX package's multi-host barriers wait for `--mesh` training): the
-model family and the constructor arguments its params fix, the params and
-BatchNorm statistics, the optimizer's state_dict, and the scalars of the
-TrainState (the validated voicing threshold, epoch, best OA, best epoch,
-step). Format `viterbi_spl_tpu_torch.checkpoint/2`; `restore_checkpoint`
-also reads `/1` files (no optimizer state: resuming one starts the
+The checkpoint is one file written with torch.save: the model family and
+the constructor arguments its params fix, the params and BatchNorm
+statistics, the optimizer's state_dict, and the scalars of the TrainState
+(the validated voicing threshold, epoch, best OA, best epoch, step). A
+`--mesh` run's state is written in the same layout: its params and
+statistics are replica 0's full tensors, and its optimizer
+(dist/train.py::MeshOptimizer) gives its state_dict gathered from the
+shards, so that the file restores into a single-device run as into a
+mesh, where `restore` re-splits it (`scatter`). With several processes
+(utils.initialize_distributed), process 0 writes between two barriers,
+and every process restores the same file (the JAX package's
+harness/train.py:125-147). Format `viterbi_spl_tpu_torch.checkpoint/2`;
+`restore_checkpoint` also reads `/1` files (no optimizer state: resuming one starts the
 optimizer afresh, as the JAX package resumes a checkpoint without a step
 counter at step 0). It reads with weights_only=True (tensors, numbers,
 strings and containers only). `scripts/orbax_to_torch.py` writes one from a
@@ -186,8 +192,22 @@ class Trainer:
     # -- checkpointing ---------------------------------------------------
     def save(self, state: TrainState) -> None:
         """One checkpoint, the best so far (max_to_keep=1, like the
-        reference)."""
-        save_checkpoint(self.ckpt_path, state, self.family, self.model_kwargs)
+        reference). Multi-process safe: process 0 writes the file after a
+        barrier (a mesh's optimizer gathers its shards locally: each
+        process holds whole data rows), and a final barrier holds everyone
+        until the file is in place, so that no process reads or replaces
+        it early."""
+        from ..utils import process_count, process_index
+
+        multiprocess = process_count() > 1
+        if multiprocess:
+            import torch.distributed as dist
+
+            dist.barrier()
+        if process_index() == 0:
+            save_checkpoint(self.ckpt_path, state, self.family, self.model_kwargs)
+        if multiprocess:
+            dist.barrier()
 
     def restore(self, state_like: TrainState) -> TrainState:
         """The checkpoint's params, statistics and optimizer state copied
@@ -200,6 +220,8 @@ class Trainer:
         _copy_into(state_like.params, ck.params, "params")
         _copy_into(state_like.batch_stats, ck.batch_stats, "batch stats")
         opt = state_like.opt_state
+        if hasattr(opt, "scatter"):  # a mesh's optimizer: the store and replicas
+            opt.scatter()
         if ck.opt_state is not None and hasattr(opt, "load_state_dict"):
             opt.load_state_dict(ck.opt_state)
         return dataclasses.replace(ck, params=state_like.params,

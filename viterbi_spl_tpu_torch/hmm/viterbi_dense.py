@@ -429,12 +429,15 @@ def decode_over_data(mesh, batch: torch.Tensor, lengths, decode) -> torch.Tensor
     """decode(share, share_lengths) on each "data" device's share of the
     batch (contiguous shares, the first N % D one track longer, as
     torch.tensor_split cuts them; a device with no track gets none); the
-    states gathered back on the batch's device."""
+    states gathered back on the batch's device. On a mesh that spans
+    processes, each process decodes only its own devices' shares and
+    returns their states, the tracks `dist.mesh.local_tracks` names."""
     lengths = cuda_lib.host_lengths(lengths, batch.shape[0], batch.shape[1])
     devices = mesh.axis_devices("data")
-    outs = []
-    for dev, idx in zip(devices, np.array_split(np.arange(batch.shape[0]), len(devices))):
-        if len(idx):
+    outs = [torch.empty((0, batch.shape[1]), dtype=torch.int32, device=batch.device)]
+    for i, (dev, idx) in enumerate(zip(devices, np.array_split(np.arange(batch.shape[0]),
+                                                               len(devices)))):
+        if len(idx) and mesh.is_local(i):
             share = slice(int(idx[0]), int(idx[-1]) + 1)
             with on_device(dev):
                 outs.append(decode(batch[share].to(dev), lengths[share]).to(batch.device))

@@ -24,6 +24,18 @@ NCHW layout.
   the torch.Generator the forward is given (on the input's device). Off in
   eval mode, and off without a generator (how the tests hold a training
   step against the JAX package's with its dropouts intercepted).
+- Data shares (`data_share`): a `--mesh` train step runs each share of the
+  global batch on its own replica, one thread a share
+  (dist/train.py::ShareGroup). Inside `data_share(group, i)` BatchNorm
+  takes the statistics of the global batch: the shares' sums are reduced
+  across the group (in-process and across processes), then, from the
+  global mean, their sums of squared deviations, before any share
+  normalizes; the reductions are differentiable, so the backward sees the
+  global statistics too, and every replica moves its running averages by
+  the same global mean and variance. Dropout draws the mask of the global
+  batch (every share's generator is seeded alike) and keeps its share's
+  rows, so that the masks equal the single-device run's. Both read dim 0
+  as the batch, as every model here lays it out.
 - `Conv` / `Dense`: a convolution or a dense layer that runs in the compute
   dtype it is given (float32, or bfloat16 under mixed precision) with
   float32 params, as flax's `dtype=` does. `padding="same"` pads as XLA
@@ -47,7 +59,9 @@ models/convert.py carries flax's across.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
@@ -76,6 +90,26 @@ def variance_scaling_(w: torch.Tensor, fan_in: int, scale: float = 1.0, generato
 
 
 _KERNEL_SCALE = {"lecun": 1.0, "he": 2.0}
+
+_SHARE = threading.local()
+
+
+@contextlib.contextmanager
+def data_share(group, index: int):
+    """This thread runs share `index` of `group` (dist/train.py::ShareGroup:
+    `all_reduce(index, t)`, `size` the global number of shares,
+    `global_index(index)`) until the block ends."""
+    prev = getattr(_SHARE, "value", None)
+    _SHARE.value = (group, index)
+    try:
+        yield
+    finally:
+        _SHARE.value = prev
+
+
+def current_share():
+    """(group, index) of the data share this thread runs, or None."""
+    return getattr(_SHARE, "value", None)
 
 
 def init_params(model: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
@@ -107,8 +141,15 @@ class BatchNorm(nn.Module):
         xf = at_least_f32(x)
         if self.training or batch_stats:
             axes = [d for d in range(x.ndim) if d != 1]
-            mu = xf.mean(dim=axes)
-            var = ((xf - mu.view(shape)) ** 2).mean(dim=axes)
+            share = current_share()
+            if share is None:
+                mu = xf.mean(dim=axes)
+                var = ((xf - mu.view(shape)) ** 2).mean(dim=axes)
+            else:  # the global batch's statistics (see the module docstring)
+                group, i = share
+                n = xf.numel() // xf.shape[1] * group.size
+                mu = group.all_reduce(i, xf.sum(dim=axes)) / n
+                var = group.all_reduce(i, ((xf - mu.view(shape)) ** 2).sum(dim=axes)) / n
             if self.training:
                 with torch.no_grad():
                     self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mu)
@@ -153,7 +194,15 @@ class Dropout(nn.Module):
         if not self.training or generator is None or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        share = current_share()
+        if share is None:
+            draw = torch.rand(x.shape, generator=generator, device=x.device)
+        else:  # this share's rows of the global batch's mask
+            group, i = share
+            b, first = x.shape[0], group.global_index(i) * x.shape[0]
+            draw = torch.rand((b * group.size, *x.shape[1:]), generator=generator,
+                              device=x.device)[first:first + b]
+        keep = draw < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
