@@ -7,8 +7,10 @@ path (apps.tonet train -> checkpoint -> infer and sweep-obs) and the
 real-data chains on a fake corpus (train -> infer --external-eval, the
 native prefetch ring, imm's external corpora), mesh training and the
 multi-process runtime (train over [cuda:0] * 4 meshes -> infer; two
-processes under gloo) end to end through their entry points, and times
-the kernels at full width.
+processes under gloo) and the reproduction drill (train to early stop ->
+threshold sweep -> infer --external-eval under three observation models
+-> the accuracy artifact) end to end through their entry points, and
+times the kernels at full width.
 
     python3 chip_smoke.py [--baseline DIR]
 
@@ -150,6 +152,18 @@ Phases (one JSON line each):
      across the processes. ms per step single and on each mesh, the mesh's
      gradient reduction and gather ms, beside the card's name and power
      limit.
+  3j. (after 3i) the reproduction drill (cli/repro_drill.py,
+     phase_repro_drill) at --small for msnet in the clean regime, on the
+     card by default, its workdir under the temporary directory, the counts
+     set to 0 just before its main and read just after (exactly K1/K2): the
+     learnable fake corpus (8 s tracks, 4 s external ones), 8 epochs of 12
+     steps, sweep-threshold, infer --external-eval under the three
+     observation models. tests/test_repro_drill.py's checks: best validation
+     OA above 0.5 after at least 3 epochs, the checkpointed threshold the
+     sweep's within 1e-6, shaun's raw and Viterbi OA above each corpus's
+     chance floor + 0.25, the cross-check within 1e-6 on validation, test
+     and adc04, the artifact's table. The phase's seconds, the train
+     call's seconds and ms a step beside the card's name and power limit.
   4. timed decode at full width: N=128 x T=32768 at 361 states (banded),
      N=64 x T=4096 at 722 (banded), N=16 x T=4096 at 361 and 722 (dense,
      with K4's segment length and the frames its seams re-chased); with
@@ -177,8 +191,9 @@ Phases (one JSON line each):
      bounds it (and the phase 4d sums), with its launches on the fused,
      transcription (3e), 44.1 kHz (3f: dcnet, imm with --separate),
      training (3g: infer, sweep-obs), real-data (3h: tonet and msnet
-     infer --external-eval, imm eval --external-eval) and mesh (3i: infer
-     on the mesh checkpoint, the two-process decode) paths.
+     infer --external-eval, imm eval --external-eval), mesh (3i: infer
+     on the mesh checkpoint, the two-process decode) and drill (3j: msnet
+     at --small) paths.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 without CUDA.
@@ -268,10 +283,7 @@ def emit(obj: dict) -> None:
 
 def counted(fn, *args, **kwargs):
     """(fn(*args, **kwargs), {kernel id: launches it made, where any})."""
-    before = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
-    out = fn(*args, **kwargs)
-    made = {k: w.launches - before[k] for k, w in VD.KERNEL_WRAPPERS.items()}
-    return out, {k: n for k, n in made.items() if n}
+    return VD.counted_launches(fn, *args, **kwargs)
 
 
 def run_counted(expect, what: str, fn, *args, **kwargs):
@@ -2210,6 +2222,87 @@ def phase_mesh_train(dev, smi: str, tmp: Path) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------
+# The reproduction drill (cli/repro_drill.py): the learnable fake corpus ->
+# train to early stop -> the checkpointed threshold against sweep-threshold
+# -> infer --external-eval under the three observation models -> the
+# artifact, msnet at --small in the clean regime, with
+# tests/test_repro_drill.py's checks.
+# ----------------------------------------------------------------------
+
+DRILL_CHANCE_MARGIN = 0.25  # shaun raw and Viterbi OA above each corpus's chance floor
+DRILL_STRICT_SETS = ("validation", "test", "adc04")  # msnet's 256-hop grid is their timebase
+
+
+def phase_repro_drill(dev, smi: str, tmp: Path) -> dict:
+    """The reproduction drill at --small for msnet in the clean regime on
+    the card (phase 3j), its workdir and artifact under tmp, the counts set
+    to 0 just before its main and read just after (exactly K1/K2: msnet's
+    matrix is banded, and the drill decodes with the default observation
+    model). Checks (tests/test_repro_drill.py:35-72): best validation OA
+    above 0.5 after at least 3 epochs, the checkpointed threshold equal to
+    the sweep's within 1e-6, shaun's raw and Viterbi OA above each corpus's
+    chance floor + DRILL_CHANCE_MARGIN, the cross-check within 1e-6 on
+    DRILL_STRICT_SETS, the markdown's table header; the phase's seconds
+    and the ms a step (the Trainer's steps alone, and the train call's wall
+    time) beside the card's name and power limit."""
+    from viterbi_spl_tpu_torch.cli import repro_drill
+
+    out_base = tmp / "drill" / "REPRO_smoke"
+    out_base.parent.mkdir()
+    saved = dict(os.environ)  # the drill sets its corpus roots
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        results = run_counted({"K1", "K2"}, "the reproduction drill (msnet --small)",
+                              repro_drill.main, ["--small", "--families", "msnet",
+                                                 "--workdir", str(tmp / "drill" / "work"),
+                                                 "--out", str(out_base)])
+    finally:
+        for k in set(os.environ) - set(saved):
+            del os.environ[k]
+        os.environ.update(saved)
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in VD.KERNEL_WRAPPERS.items()}
+    r = results["regimes"]["clean"]["families"]["msnet"]
+    shaun = r["results"]["shaun"]
+    rec = {"phase": "repro_drill", "family": "msnet", "regime": "clean", "scale": "--small",
+           "phase_seconds": seconds, "launches": launches,
+           **{k: r[k] for k in ("platform", "best_val_oa", "best_epoch", "epochs_run",
+                                "selected_threshold", "sweep_best_threshold", "train_seconds",
+                                "steps_taken", "ms_per_step", "train_wall_ms_per_step",
+                                "chance_oa")},
+           "shaun": {c: [row["raw_oa"], row["viterbi_oa"], row["cross_check_max_abs"]]
+                     for c, row in shaun.items()},
+           "config": results["config"]}
+    emit(rec)
+    check(r["best_val_oa"] > 0.5, f"drill: best validation OA {r['best_val_oa']} above 0.5")
+    check(r["epochs_run"] >= 3, f"drill: {r['epochs_run']} epochs run, at least 3")
+    check(abs(r["selected_threshold"] - r["sweep_best_threshold"]) < 1e-6,
+          f"drill: the checkpointed threshold {r['selected_threshold']} is the sweep's "
+          f"{r['sweep_best_threshold']}")
+    check(list(shaun) == list(repro_drill.CORPORA), f"drill: corpora {list(shaun)}")
+    for corpus, row in shaun.items():
+        floor = r["chance_oa"][corpus] + DRILL_CHANCE_MARGIN
+        check(row["raw_oa"] > floor and row["viterbi_oa"] > floor,
+              f"drill {corpus}: raw {row['raw_oa']} and Viterbi {row['viterbi_oa']} OA "
+              f"above chance + {DRILL_CHANCE_MARGIN} ({floor})")
+        if corpus in DRILL_STRICT_SETS:
+            check(row["cross_check_max_abs"] < 1e-6,
+                  f"drill {corpus}: cross-check {row['cross_check_max_abs']} within 1e-6")
+    check("| corpus | chance | raw OA |" in out_base.with_suffix(".md").read_text(),
+          "drill: the artifact's markdown holds the accuracy table")
+    for what, value in (("phase seconds", f"{seconds:.1f}"),
+                        ("train seconds", f"{r['train_seconds']:.1f}"),
+                        ("ms a step (the Trainer's steps)", f"{r['ms_per_step']:.2f}"),
+                        ("ms a step (train call wall time)",
+                         f"{r['train_wall_ms_per_step']:.2f}"),
+                        ("best val OA", f"{r['best_val_oa']:.4f}"),
+                        ("K1, K2 launches", f"{launches['K1']}, {launches['K2']}")):
+        print(f"drill phase, {smi}: {what} {value}", flush=True)
+    return rec
+
+
 def phase_streaming(dev) -> dict:
     """StreamingViterbiBatch at tonet 361: 64 streams, 32-frame pushes (320
     ms of audio), lag 128 and lag >= length over 4096 frames of K5's log
@@ -2850,6 +2943,7 @@ def main(argv=None) -> int:
         train = phase_train(dev, smi, Path(tmp))
         real = phase_real_data(dev, smi, Path(tmp))
         mesh_train = phase_mesh_train(dev, smi, Path(tmp))
+        drill = phase_repro_drill(dev, smi, Path(tmp))
     # each kernel's count from the path it belongs to
     launches.update({k: fused_launches[k] for k in ("K5", "K6", "K9")})
     launches.update({k: seq_launches[k] for k in ("K7", "K8")})
@@ -2887,6 +2981,7 @@ def main(argv=None) -> int:
             "launches_on_mesh_path": {
                 "infer_mesh_checkpoint": mesh_train["launches_infer"][k],
                 "two_process_decode": mesh_train["launches_two_process_decode"][k]},
+            "launches_on_drill_path": {"msnet_small_clean": drill["launches"][k]},
             "path_ms_sum": path[k]["ms_sum"], "path_bound_ms_sum": path[k]["bound_ms_sum"],
             "path_ms_sum_base": path[k]["ms_sum_base"],
             "other_shapes": [entry(r) for lbl, r in timing.items()

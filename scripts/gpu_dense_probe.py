@@ -11,8 +11,12 @@
    turns (each in order, then in reverse) on the same inputs, at: imm 722,
    N=16, T=4096; the main path's imm tracks (N=4, lengths 1500, 700, 1100,
    500); random 361, N=16, T=4096; and the streaming pool's dense push (64
-   streams x 33 rows: the carry and 32 frames) at both state counts. Both
-   routes' t1_last and t1m1 must be equal below each length, bit for bit.
+   streams x 33 rows: the carry and 32 frames) at both state counts; and
+   the reproduction drill's imm shapes (cli/repro_drill.py runs imm's
+   `eval --debug --original`: the debug NMF's 146 states, one batch of
+   the two 24 s mdb_test tracks and one of two 8 s tracks a external
+   corpus). Both routes' t1_last and t1m1 must be equal below each
+   length, bit for bit. Each reading also in us a frame and track.
 
 3. k4clock: K4's chain (9cb2ea1's kernel: one warp a track, each step
    the state-chosen logB row from L2 and a first-max warp argmax), copied
@@ -34,8 +38,12 @@
    8, 16 and 64, and the segments shortest lengths of 16, 32, 128 and 256
    frames would give; every variant's states equal to the chain's, with the
    frames its seams re-chased (the data-dependent part of its work).
+6. spills: ptxas -v's registers, stack frame and spill bytes for each
+   instantiation of K7's kernel (window_forward_kernel<kVec, kG>: kVec
+   2, 6, 12 by the state count, kG = 1-4 tracks a cluster), read from the
+   build log of csrc/viterbi_window.cu.
 
-    python3 scripts/gpu_dense_probe.py [--parts clusters,forward,k4clock,k4pass,k4seg]
+    python3 scripts/gpu_dense_probe.py [--parts clusters,forward,k4clock,k4pass,k4seg,spills]
 
 Prints the card's name and power limit, then one JSON line per reading.
 K3's cluster count and the clocked chain come from a copy of
@@ -255,6 +263,24 @@ def cluster_counts(query):
                                       "K7_kernel": VD.window_max_clusters(S)}})
 
 
+def drill_imm_shapes(dev):
+    """The reproduction drill's imm decodes of the original method: the
+    debug NMF's matrix (146 states) and its frame counts for the two 24 s
+    mdb_test tracks and for two 8 s tracks (adc04, mirex05 and mir1k alike)."""
+    from viterbi_spl_tpu_torch.models.imm import IMM, IMMConfig
+
+    imm = IMM(IMMConfig(niters=15, R=6, P=8, K=4, bins_per_note=4), device=dev)
+    S = imm.transition_matrix.shape[0]
+    case = (imm.transition_matrix, np.full(S, 1.0 / S))
+
+    def frames(seconds):
+        return int(imm.power_spectrogram(np.zeros(int(seconds * imm.config.fs),
+                                                  np.float32)).shape[0])
+
+    return [(f"imm {S} drill mdb_test", case, np.full(2, frames(24.0), np.int32)),
+            (f"imm {S} drill external", case, np.full(2, frames(8.0), np.int32))]
+
+
 def forward_timings(dev):
     imm = imm_case()
     rnd = dense_matrix(361, 2)
@@ -262,7 +288,8 @@ def forward_timings(dev):
               ("imm 722 main path", imm, np.array([1500, 700, 1100, 500], np.int32)),
               ("random 361", rnd, np.full(16, 4096, np.int32)),
               ("imm 722 streaming push", imm, np.full(64, 33, np.int32)),
-              ("random 361 streaming push", rnd, np.full(64, 33, np.int32))]
+              ("random 361 streaming push", rnd, np.full(64, 33, np.int32)),
+              *drill_imm_shapes(dev)]
     fwd = routes()
     for label, (A, pi), lengths in shapes:
         S = A.shape[0]
@@ -289,7 +316,9 @@ def forward_timings(dev):
               "T": int(lengths.max()), "S": S, "lengths": lengths.tolist()[:8],
               "ms": {r: float(np.mean(v)) for r, v in ms.items()}, "readings_ms": ms,
               "us_per_frame": {r: 1e3 * float(np.mean(v)) / int(lengths.max())
-                               for r, v in ms.items()}})
+                               for r, v in ms.items()},
+              "us_per_frame_track": {r: 1e3 * float(np.mean(v)) / int(lengths.sum())
+                                     for r, v in ms.items()}})
         del log_obs
         torch.cuda.empty_cache()
 
@@ -412,12 +441,47 @@ def k4_segments(dev):
         torch.cuda.empty_cache()
 
 
+def window_spills() -> None:
+    """ptxas -v's report for each window_forward_kernel<kVec, kG> in the
+    build log of csrc/viterbi_window.cu (cuda_lib builds with -Xptxas -v)."""
+    import re
+
+    log = next(cuda_lib.BUILD_DIR.glob("libviterbi_window-*.log")).read_text()
+    entry = re.compile(r"Compiling entry function '(_Z\d+window_forward_kernelILi(\d+)ELi(\d+)E\w*)'")
+    props = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+    regs = re.compile(r"Used (\d+) registers")
+    current = None
+    found = {}
+    for line in log.splitlines():
+        m = entry.search(line)
+        if m:
+            current = (int(m.group(2)), int(m.group(3)))
+            found[current] = {}
+            continue
+        if current is None:
+            continue
+        m = props.search(line)
+        if m:
+            found[current].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                                  spill_load_bytes=int(m.group(3)))
+        m = regs.search(line)
+        if m:
+            found[current]["registers"] = int(m.group(1))
+            current = None
+    if not found:
+        raise RuntimeError("no window_forward_kernel entry in the ptxas log")
+    for (vec, g), rec in sorted(found.items()):
+        emit({"probe": "spills", "kernel": f"window_forward_kernel<{vec}, {g}>",
+              "states": f"{64 * {2: 0, 6: 2, 12: 6}[vec] + 1}-{64 * vec}", "tracks_a_cluster": g,
+              **rec})
+
+
 def sm_clock_mhz() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-PARTS = ("clusters", "forward", "k4clock", "k4pass", "k4seg")
+PARTS = ("clusters", "forward", "k4clock", "k4pass", "k4seg", "spills")
 
 
 def main(argv=None) -> int:
@@ -425,7 +489,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default=",".join(PARTS),
                     help="comma-separated: clusters (resident clusters), forward (K3's routes), "
                          "k4clock (K4's chain step, clocked), k4pass (K8's pass + chase "
-                         "against K4), k4seg (K4 by segment length and warm-up)")
+                         "against K4), k4seg (K4 by segment length and warm-up), spills "
+                         "(ptxas's spill bytes for K7's kernel by instantiation)")
     parts = set(ap.parse_args(argv).parts.split(","))
     if not torch.cuda.is_available():
         print("gpu_dense_probe: CUDA is not available", file=sys.stderr)
@@ -446,6 +511,8 @@ def main(argv=None) -> int:
         k4_pass(dev)
     if "k4seg" in parts:
         k4_segments(dev)
+    if "spills" in parts:
+        window_spills()
     print(smi, flush=True)
     return 0
 

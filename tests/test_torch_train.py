@@ -116,6 +116,21 @@ def test_training_loop_early_stop_and_checkpoint(tmp_path):
     assert family == "tiny" and ck.opt_state["param_groups"][0]["lr"] == 0.1
 
 
+def test_fit_reports_each_epochs_steps_and_seconds(tmp_path):
+    """on_epoch_end's info holds the epoch's steps and their seconds (the
+    event log's train_steps and train_step_seconds), and the Trainer keeps
+    the last epoch's; the steps sum to the state's step counter."""
+    trainer, state, batches = _tiny_trainer(tmp_path)
+    infos = []
+    state = trainer.fit(state, batches, steps_per_epoch=5,
+                        on_epoch_end=lambda st, info: infos.append(info))
+    assert [i["train_steps"] for i in infos] == [5] * len(infos)
+    assert sum(i["train_steps"] for i in infos) == state.step
+    assert all(i["train_step_seconds"] > 0 for i in infos)
+    assert (trainer.last_epoch_steps, trainer.last_epoch_seconds) == (
+        infos[-1]["train_steps"], infos[-1]["train_step_seconds"])
+
+
 def test_training_resume_validates_first(tmp_path):
     trainer, state, batches = _tiny_trainer(tmp_path)
     state = trainer.fit(state, batches, steps_per_epoch=2)

@@ -754,6 +754,8 @@ def _train(cfg, args, trainer, state, datasets, steps_per_epoch, dev, full_batch
         reporter.scalar("train_loss", info["train_loss"], st.epoch)
         reporter.scalar("val_oa", info["val"]["oa"], st.epoch)
         reporter.scalar("voicing_threshold", st.voicing_threshold, st.epoch)
+        reporter.scalar("train_steps", info["train_steps"], st.epoch)
+        reporter.scalar("train_step_seconds", info["train_step_seconds"], st.epoch)
         # per-epoch training-split metric set + markdown tables (the
         # reference computes VRR..OA on training batches every epoch and
         # writes TB tables, dcnet/softmax_viterbi.py:1599-1850 + :3232-3355)

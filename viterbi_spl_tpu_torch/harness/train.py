@@ -42,6 +42,7 @@ import dataclasses
 import inspect
 import logging
 import os
+import time
 from pathlib import Path
 from typing import Any, Callable, Iterator
 
@@ -173,6 +174,8 @@ class Trainer:
         self.ckpt_path = Path(ckpt_path).absolute()
         self.family = family
         self.model_kwargs = dict(model_kwargs or {})
+        # the last epoch's steps and their seconds (on_epoch_end's info has them)
+        self.last_epoch_steps, self.last_epoch_seconds = 0, 0.0
         # a metrics-reporting step declares a parameter literally named
         # `threshold` (make_train_step does); counting parameters would
         # misread variadic steps or steps with unrelated optional args
@@ -233,6 +236,7 @@ class Trainer:
     ) -> tuple[TrainState, float, dict | None]:
         losses = []
         count_list = []
+        t0 = time.perf_counter()
         for _ in range(steps):
             batch = next(batches)
             if self._step_takes_threshold:
@@ -253,6 +257,8 @@ class Trainer:
             losses.append(torch.as_tensor(loss))
         # one device->host read for the epoch's losses, one for its counts
         mean_loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
+        # the steps' time, the device's included (the read above waits for it)
+        self.last_epoch_steps, self.last_epoch_seconds = steps, time.perf_counter() - t0
         train_metrics = None
         if count_list:
             summed = {k: torch.stack([c[k] for c in count_list]).sum(dim=0)
@@ -302,7 +308,8 @@ class Trainer:
                 on_epoch_end(
                     state,
                     dict(train_loss=train_loss, val=val, improved=improved,
-                         train_metrics=train_metrics),
+                         train_metrics=train_metrics, train_steps=self.last_epoch_steps,
+                         train_step_seconds=self.last_epoch_seconds),
                 )
             if state.epoch - state.best_epoch >= self.patience:
                 logging.info(

@@ -394,6 +394,16 @@ KERNEL_WRAPPERS = {
 }
 
 
+def counted_launches(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), {kernel id: launches it made, where any}): the
+    wrappers' own counts (each adds one where it launches its kernel on the
+    card; none on the CPU)."""
+    before = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+    out = fn(*args, **kwargs)
+    made = {k: w.launches - before[k] for k, w in KERNEL_WRAPPERS.items()}
+    return out, {k: n for k, n in made.items() if n}
+
+
 def viterbi_forward(log_B, log_pi, log_obs: torch.Tensor, T: int, reset_row: int = 0):
     """Single-track forward (counterpart of viterbi_forward_pallas, without
     its lane and frame padding): log_obs [W, S] with T <= W real frames ->
