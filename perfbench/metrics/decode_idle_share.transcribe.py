@@ -1,0 +1,8 @@
+"""Share of the window in which the card is idle while the host is inside
+the program's `decode_service` spans (DecoderSetup.decode_batch)."""
+
+from perfbench.metrics._program import idle_share_in
+
+
+def read(run):
+    return idle_share_in(run, "decode_service")

@@ -66,14 +66,15 @@ def test_shape_bucket_equals_jax(quantum, ratio, minimum):
 
 def test_timer_matches_jax_timer(monkeypatch):
     """The same spans under a stepped clock give the same totals, counts and
-    report."""
+    report. The JAX Timer reads time.perf_counter, the port's (tracing.timed
+    spans) time.time_ns."""
     import viterbi_spl_tpu.utils as ju
-    import viterbi_spl_tpu_torch.utils as tu
+    import viterbi_spl_tpu_torch.tracing as tt
 
     reports = []
-    for mod, cls in ((ju, JTimer), (tu, Timer)):
+    for mod, clock, unit, cls in ((ju, "perf_counter", 1, JTimer), (tt, "time_ns", 10**9, Timer)):
         ticks = iter(np.arange(100) * 0.25)
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: float(next(ticks)))
+        monkeypatch.setattr(mod.time, clock, lambda: float(next(ticks)) * unit)
         t = cls()
         for name in ("a", "b", "a"):
             with t.span(name):

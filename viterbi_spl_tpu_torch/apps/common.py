@@ -40,6 +40,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data import TrackDataset, training_snippets
 from ..data.snippets import chunk_fixed, inference_snippets, snippet_index
 from ..dist.mesh import make_mesh, mesh_device_list, parse_mesh_spec
@@ -374,11 +375,12 @@ def _forward(cfg: AppConfig, model, batch_stats: bool):
 
     @torch.no_grad()
     def fwd(spec: np.ndarray):
-        x = torch.tensor(np.asarray(spec), device=_device(model),
-                         dtype=_param_dtype(model))
-        if cfg.input_adapter is not None:
-            x = cfg.input_adapter(x)
-        return model(x, batch_stats=batch_stats)
+        with tracing.span("model.upload"):
+            x = tracing.upload(np.asarray(spec), _device(model), "model", _param_dtype(model))
+        with tracing.span("model.forward"):
+            if cfg.input_adapter is not None:
+                x = cfg.input_adapter(x)
+            return model(x, batch_stats=batch_stats)
 
     return fwd
 
@@ -396,13 +398,21 @@ def model_logits_for_dataset(cfg: AppConfig, model, dataset, with_voicing: bool 
     eval_batch_stats (the track's own statistics), else in batches of
     cfg.batch_size (each chunk independent, as the JAX package's one chunk
     at a time). Other models run one snippet at a time, a ragged last one
-    at its own length."""
+    at its own length. A `model` span (tracing.py)."""
+    with tracing.span("model"):
+        return _model_logits(cfg, model, dataset, with_voicing)
+
+
+def _model_logits(cfg: AppConfig, model, dataset, with_voicing: bool):
     model.eval()
     want_voicing = with_voicing and cfg.voicing_adapter is not None
 
+    def host(t):
+        return tracing.to_host(t.to(torch.float32), "model").numpy()
+
     def split(out):
-        lg = cfg.logits_adapter(out).to(torch.float32).cpu().numpy()
-        v = cfg.voicing_adapter(out).to(torch.float32).cpu().numpy() if want_voicing else None
+        lg = host(cfg.logits_adapter(out))
+        v = host(cfg.voicing_adapter(out)) if want_voicing else None
         return lg, v
 
     def pack(logits_list, voicing_list):

@@ -34,12 +34,12 @@ import argparse
 import dataclasses
 import importlib
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..harness.evaluate import ALLOWED_VITERBI_METHODS
 from ..utils import resolve_device
 from .decode import build_setup as decode_build_setup
@@ -59,25 +59,28 @@ def features_from_samples(family: str, samples: np.ndarray, device=None) -> np.n
     """samples (float32, at FAMILY_SR[family]) -> the family's model input,
     computed on `device` (CUDA by default). One-to-one with the apps'
     real-data spec_fns, so a transcribed wav sees the training feature
-    chain."""
-    if family == "dcnet":
-        from ..frontend.nsgt import dcnet_feature, nsgt_for_length
+    chain. A `front_end` span (tracing.py)."""
+    with tracing.span("front_end"):
+        if family == "dcnet":
+            from ..frontend.nsgt import dcnet_feature, nsgt_for_length
 
-        nsgt = nsgt_for_length(len(samples), device=device)
-        return dcnet_feature(nsgt.transform_track(samples))
-    if family in ("msnet", "ftanet", "tonet"):
-        from ..frontend import CFP, FTANET_CFP, MSNET_CFP, TONET_CFP
+            nsgt = nsgt_for_length(len(samples), device=device)
+            return dcnet_feature(nsgt.transform_track(samples))
+        if family in ("msnet", "ftanet", "tonet"):
+            from ..frontend import CFP, FTANET_CFP, MSNET_CFP, TONET_CFP
 
-        cfp_cfg = {"msnet": MSNET_CFP, "ftanet": FTANET_CFP, "tonet": TONET_CFP}[family]
-        feat = CFP(cfp_cfg, device=device).features(samples)
-        if family == "tonet":
-            # tonet models take [T, 3, 360] (tonet/main_shaun.py layout)
-            feat = np.ascontiguousarray(feat.transpose(0, 2, 1))
-        return feat
-    if family == "jdc":
-        from ..frontend import jdc_spectrogram
+            cfp_cfg = {"msnet": MSNET_CFP, "ftanet": FTANET_CFP, "tonet": TONET_CFP}[family]
+            with tracing.span("front_end.setup"):
+                cfp = CFP(cfp_cfg, device=device)
+            feat = cfp.features(samples)
+            if family == "tonet":
+                # tonet models take [T, 3, 360] (tonet/main_shaun.py layout)
+                feat = np.ascontiguousarray(feat.transpose(0, 2, 1))
+            return feat
+        if family == "jdc":
+            from ..frontend import jdc_spectrogram
 
-        return jdc_spectrogram(samples, device=device)
+            return jdc_spectrogram(samples, device=device)
     raise ValueError(f"unknown family {family!r}")
 
 
@@ -109,7 +112,7 @@ def nn_logits_from_wavs(family: str, paths, ckpt: str, bf16: bool = False, devic
     """wav paths -> (per-track [T, n_bins] logits, restored TrainState).
     `stages` (when given) receives the seconds of each stage: wav load,
     front-end, model load (the checkpoint read and put on the device) and
-    model (the forward)."""
+    model (the forward), each a `transcribe.<stage>` span's."""
     from ..apps.common import load_state, model_logits_for_dataset
     from ..harness.train import restore_checkpoint
     from ..io.wav import load_wav
@@ -120,23 +123,23 @@ def nn_logits_from_wavs(family: str, paths, ckpt: str, bf16: bool = False, devic
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     stages = {} if stages is None else stages
 
-    t0 = time.perf_counter()
-    samples = [load_wav(p, sr=FAMILY_SR[family])[0] for p in paths]
-    t1 = time.perf_counter()
-    specs = [features_from_samples(family, s, device=dev) for s in samples]
-    t2 = time.perf_counter()
-    state, ck_family, model_kwargs = restore_checkpoint(ckpt)
-    if ck_family != family:
-        raise ValueError(f"{ckpt} holds a {ck_family} model, not {family}")
-    # built without drawing params (the checkpoint overwrites them all)
-    with torch.device("meta"):
-        model = cfg.make_model(dtype=cfg.compute_dtype, **model_kwargs)
-    model = model.to_empty(device=dev).eval()
-    load_state(model, state)
-    t3 = time.perf_counter()
-    logits = model_logits_for_dataset(cfg, model, _WavDataset([p.stem for p in paths], specs))
-    t4 = time.perf_counter()
-    stages.update(wav_load=t1 - t0, front_end=t2 - t1, model_load=t3 - t2, model=t4 - t3)
+    with tracing.timed("transcribe.wav_load") as wav_load:
+        samples = [load_wav(p, sr=FAMILY_SR[family])[0] for p in paths]
+    with tracing.timed("transcribe.front_end") as front_end:
+        specs = [features_from_samples(family, s, device=dev) for s in samples]
+    with tracing.timed("transcribe.model_load") as model_load:
+        state, ck_family, model_kwargs = restore_checkpoint(ckpt)
+        if ck_family != family:
+            raise ValueError(f"{ckpt} holds a {ck_family} model, not {family}")
+        # built without drawing params (the checkpoint overwrites them all)
+        with torch.device("meta"):
+            model = cfg.make_model(dtype=cfg.compute_dtype, **model_kwargs)
+        model = model.to_empty(device=dev).eval()
+        load_state(model, state)
+    with tracing.timed("transcribe.model") as forward:
+        logits = model_logits_for_dataset(cfg, model, _WavDataset([p.stem for p in paths], specs))
+    stages.update(wav_load=wav_load.seconds, front_end=front_end.seconds,
+                  model_load=model_load.seconds, model=forward.seconds)
     return logits, state
 
 
@@ -169,24 +172,23 @@ def imm_logits_from_wavs(paths, imm, stages: dict | None = None):
     """wav paths -> per-track [T, U] log-energy logits. Checkpoint-free: the
     NMF is fitted per recording at inference, as in the reference
     (imm/main_imm.py:1139-1180). `stages` (when given) receives the seconds
-    of each stage (wav load, STFT, NMF fit, energies) and the sweeps of
-    each fit."""
+    of each stage (wav load, STFT, NMF fit, energies), each a
+    `transcribe.<stage>` span's, and the sweeps of each fit."""
     from ..io.wav import load_wav
     from ..models.adapters import imm_pitch_logits
 
     stages = {} if stages is None else stages
-    t0 = time.perf_counter()
-    samples = [load_wav(p, sr=imm.config.fs)[0] for p in paths]
-    t1 = time.perf_counter()
-    specs = [imm.power_spectrogram(s) for s in samples]
-    _sync(imm.device)
-    t2 = time.perf_counter()
-    fits = [imm.fit(SX) for SX in specs]
-    t3 = time.perf_counter()
-    logits = [imm_pitch_logits(imm.logits_from_fit(f, SX)) for f, SX in zip(fits, specs)]
-    t4 = time.perf_counter()
-    stages.update(wav_load=t1 - t0, stft=t2 - t1, nmf_fit=t3 - t2, energies=t4 - t3,
-                  sweeps=[f["sweeps"] for f in fits])
+    with tracing.timed("transcribe.wav_load") as wav_load:
+        samples = [load_wav(p, sr=imm.config.fs)[0] for p in paths]
+    with tracing.timed("transcribe.stft") as stft:
+        specs = [imm.power_spectrogram(s) for s in samples]
+        _sync(imm.device)
+    with tracing.timed("transcribe.nmf_fit") as nmf_fit:
+        fits = [imm.fit(SX) for SX in specs]
+    with tracing.timed("transcribe.energies") as energies:
+        logits = [imm_pitch_logits(imm.logits_from_fit(f, SX)) for f, SX in zip(fits, specs)]
+    stages.update(wav_load=wav_load.seconds, stft=stft.seconds, nmf_fit=nmf_fit.seconds,
+                  energies=energies.seconds, sweeps=[f["sweeps"] for f in fits])
     return logits
 
 
@@ -195,7 +197,7 @@ def run_imm_separation(paths, names, args, stages: dict | None = None):
     <out>/<name>_melody.wav + <name>_accompaniment.wav (stereo, at the imm
     sample rate) and the decoded melody line (imm/tf_imm.py:354-618).
     `stages` (when given) receives the seconds of the wav load and of the
-    separation chain."""
+    separation chain, each a `transcribe.<stage>` span's."""
     from ..apps.imm import separate_stereo_samples
     from ..io.wav import load_wav, save_wav
 
@@ -206,18 +208,17 @@ def run_imm_separation(paths, names, args, stages: dict | None = None):
     out_dir.mkdir(parents=True, exist_ok=True)
     results = []
     for path, name in zip(paths, names):
-        t0 = time.perf_counter()
-        samples, _ = load_wav(path, sr=imm.config.fs, mono=False)
-        t1 = time.perf_counter()
-        if samples.ndim == 1:
-            print(f"{name}: mono input, separating with identical channels")
-            left = right = samples
-        else:
-            left, right = samples[:, 0], samples[:, 1]
-        r = separate_stereo_samples(imm, left, right, setup)
-        t2 = time.perf_counter()
-        stages["wav_load"] = stages.get("wav_load", 0.0) + t1 - t0
-        stages["separate"] = stages.get("separate", 0.0) + t2 - t1
+        with tracing.timed("transcribe.wav_load") as wav_load:
+            samples, _ = load_wav(path, sr=imm.config.fs, mono=False)
+        with tracing.timed("transcribe.separate") as separate:
+            if samples.ndim == 1:
+                print(f"{name}: mono input, separating with identical channels")
+                left = right = samples
+            else:
+                left, right = samples[:, 0], samples[:, 1]
+            r = separate_stereo_samples(imm, left, right, setup)
+        stages["wav_load"] = stages.get("wav_load", 0.0) + wav_load.seconds
+        stages["separate"] = stages.get("separate", 0.0) + separate.seconds
         save_wav(out_dir / f"{name}_melody.wav", r["melody"], imm.config.fs)
         save_wav(out_dir / f"{name}_accompaniment.wav", r["accompaniment"], imm.config.fs)
         # the melody line alongside (times + Hz, unvoiced = 0)
@@ -240,7 +241,13 @@ def main(argv=None, stages: dict | None = None):
     """The CLI. `stages` (when given) receives the seconds of each stage:
     wav load, front-end, model load, model (imm: STFT, NMF fit with its
     sweeps, energies; --separate: the separation chain), and observation +
-    decode."""
+    decode. One invocation is one request of the program's spans
+    (tracing.request)."""
+    with tracing.request():
+        return _main(argv, stages)
+
+
+def _main(argv, stages: dict | None):
     ap = argparse.ArgumentParser(
         description="End-to-end melody transcription (wav -> melody lines)"
     )
@@ -314,9 +321,9 @@ def main(argv=None, stages: dict | None = None):
                 device=args.device,
             )
         )
-    t0 = time.perf_counter()
-    results = decode_named_logits(setup, names, logits_list, args)
-    stages["decode"] = time.perf_counter() - t0
+    with tracing.timed("transcribe.decode") as decode:
+        results = decode_named_logits(setup, names, logits_list, args)
+    stages["decode"] = decode.seconds
     voiced_frames = sum(int(r["voiced"].sum()) for r in results)
     total = sum(len(r["voiced"]) for r in results)
     print(

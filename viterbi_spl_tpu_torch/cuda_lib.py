@@ -23,6 +23,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("viterbi_banded", "viterbi_dense", "viterbi_window", "obs")
@@ -106,7 +108,7 @@ def host_lengths(lengths, N: int, T: int) -> np.ndarray:
     """Validated per-track lengths as host int32 (1 <= len <= T): a kernel
     trusts them as loop bounds."""
     if isinstance(lengths, torch.Tensor):
-        lengths = lengths.cpu().numpy()
+        lengths = tracing.to_host(lengths, "decode").numpy()
     lengths = np.asarray(lengths, np.int32)
     if lengths.shape != (N,) or lengths.min() < 1 or lengths.max() > T:
         raise ValueError(f"lengths must be [N={N}] in [1, T={T}], got {lengths}")

@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from ..utils import resolve_device
 from .stft import stft_frames, unit_norm_blackmanharris
 
@@ -134,9 +135,9 @@ class CFP:
         self.freq_matrix = _freq_to_logfreq_matrix(config)
         self.quef_matrix = _quef_to_logfreq_matrix(config)
         f64 = torch.float64
-        self._window = torch.from_numpy(self.window).to(self.device, f64)
-        self._wf = torch.from_numpy(self.freq_matrix).to(self.device, f64)
-        self._wq = torch.from_numpy(self.quef_matrix).to(self.device, f64)
+        self._window = tracing.upload(self.window, self.device, "front_end", f64)
+        self._wf = tracing.upload(self.freq_matrix, self.device, "front_end", f64)
+        self._wq = tracing.upload(self.quef_matrix, self.device, "front_end", f64)
 
     def _filterbank_block(self, samples: torch.Tensor):
         """One block of float32 samples -> (spec, ceps, gcos) [n_frames,
@@ -176,10 +177,11 @@ class CFP:
     @staticmethod
     def _normalize(x: torch.Tensor) -> torch.Tensor:
         """log1p + global min-max (msnet/tf_cfp.py:326-337); left unscaled
-        when max ~= min."""
+        when max ~= min. Its two reads of the card are `front_end.wait`
+        spans."""
         x = torch.log1p(x)
         lo, hi = x.min(), x.max()
-        if float(hi) > float(lo) + 1e-3:
+        if float(tracing.to_host(hi, "front_end")) > float(tracing.to_host(lo, "front_end")) + 1e-3:
             x = (x - lo) / (hi - lo)
         return x
 
@@ -199,19 +201,20 @@ class CFP:
         needed = (total_frames - 1) * cfg.hop_size + cfg.win_len
         if needed > len(padded):
             raise ValueError("padding shortfall")
-        padded = torch.from_numpy(padded[:needed]).to(self.device)
+        padded = tracing.upload(padded[:needed], self.device, "front_end")
 
         starts = list(range(0, total_frames, cfg.max_num_frames)) + [total_frames]
         outs = ([], [], [])
-        for s, e in zip(starts[:-1], starts[1:]):
-            s0 = s * cfg.hop_size
-            e0 = (e - s - 1) * cfg.hop_size + s0 + cfg.win_len
-            for i, part in enumerate(self._filterbank_block(padded[s0:e0])):
-                if tuple(part.shape) != (e - s, cfg.n_bins):
-                    raise AssertionError(f"block shape {tuple(part.shape)}")
-                outs[i].append(part)
+        with tracing.span("front_end.blocks"):
+            for s, e in zip(starts[:-1], starts[1:]):
+                s0 = s * cfg.hop_size
+                e0 = (e - s - 1) * cfg.hop_size + s0 + cfg.win_len
+                for i, part in enumerate(self._filterbank_block(padded[s0:e0])):
+                    if tuple(part.shape) != (e - s, cfg.n_bins):
+                        raise AssertionError(f"block shape {tuple(part.shape)}")
+                    outs[i].append(part)
         parts = [self._normalize(torch.cat(o, dim=0)) for o in outs]
-        feat = torch.stack(parts, dim=-1).to(torch.float32).cpu().numpy()
+        feat = tracing.to_host(torch.stack(parts, dim=-1).to(torch.float32), "front_end").numpy()
         return np.require(feat, requirements=["C"])
 
     def features_tonet(self, samples: np.ndarray) -> np.ndarray:

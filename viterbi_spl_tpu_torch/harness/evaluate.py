@@ -28,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..dist.mesh import Mesh
 from ..hmm import obs_fused
 from ..hmm.obs import shaun_observation_probs, softmax_observation_probs
@@ -106,7 +107,7 @@ class DecoderSetup:
     def observation_probs(self, logits) -> torch.Tensor:
         """logits [T, n_bins] -> obs weights [T, n_bins + 1] (unvoiced last),
         on the setup's device."""
-        logits = torch.as_tensor(np.asarray(logits), dtype=torch.float32).to(self.device)
+        logits = tracing.upload(np.asarray(logits), self.device, "decode_service", torch.float32)
         th_logit = self.threshold_logit
         if self.method == "shaun":
             return shaun_observation_probs(
@@ -126,23 +127,25 @@ class DecoderSetup:
         """Decode many tracks together through the batched decode API
         (banded kernels when the transition structure allows, dense
         otherwise). Paths are bit-identical to the NumPy oracle given the
-        same log observations."""
-        if self.fused_obs:
-            return self._decode_batch_fused(logits_list)
-        obs_list = [self.observation_probs(lg) for lg in logits_list]
-        states_list = viterbi_decode_batch(
-            transition_matrix=self.transition_matrix,
-            prob_init=self.init_probs,
-            probs_st_list=[o.T for o in obs_list],
-            device=self.device,
-            mesh=self.mesh,
-        )
-        out = []
-        for states in states_list:
-            voiced = states < self.n_bins
-            bins = np.minimum(states, self.n_bins - 1)
-            out.append((voiced, bins))
-        return out
+        same log observations. A `decode_service` span (tracing.py)."""
+        with tracing.span("decode_service"):
+            if self.fused_obs:
+                return self._decode_batch_fused(logits_list)
+            with tracing.span("decode_service.observe"):
+                obs_list = [self.observation_probs(lg) for lg in logits_list]
+            states_list = viterbi_decode_batch(
+                transition_matrix=self.transition_matrix,
+                prob_init=self.init_probs,
+                probs_st_list=[o.T for o in obs_list],
+                device=self.device,
+                mesh=self.mesh,
+            )
+            out = []
+            for states in states_list:
+                voiced = states < self.n_bins
+                bins = np.minimum(states, self.n_bins - 1)
+                out.append((voiced, bins))
+            return out
 
     def obs_config(self) -> dict:
         """The observation model as the fused kernels' obs dict
@@ -162,12 +165,14 @@ class DecoderSetup:
         staged = np.zeros((len(lengths), max(lengths), self.n_bins), np.float32)
         for i, lg in enumerate(logits_list):
             staged[i, : lengths[i]] = np.asarray(lg, np.float32)
-        logits = torch.from_numpy(staged).to(self.device)
+        with tracing.span("decode_service.observe"):
+            logits = tracing.upload(staged, self.device, "decode_service")
+            log_obs = obs_fused.log_obs(logits, self.obs_config())
         states = viterbi_decode_batch_logobs(
             transition_matrix=self.transition_matrix, prob_init=self.init_probs,
-            log_obs=obs_fused.log_obs(logits, self.obs_config()), lengths=lengths,
-            mesh=self.mesh,
-        ).cpu().numpy()
+            log_obs=log_obs, lengths=lengths, mesh=self.mesh,
+        )
+        states = tracing.to_host(states, "decode_service").numpy()
         out = []
         for i, L in enumerate(lengths):
             st = states[i, :L].astype(np.int64)

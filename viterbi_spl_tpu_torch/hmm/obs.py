@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 def find_peaks(logits: torch.Tensor, spw: int) -> torch.Tensor:
     """Boolean peak mask per frame.
@@ -36,7 +38,7 @@ def find_peaks(logits: torch.Tensor, spw: int) -> torch.Tensor:
     """
     n_bins = logits.shape[-1]
     idx = np.pad(np.arange(n_bins), spw, mode="reflect")
-    padded = logits[:, torch.as_tensor(idx, device=logits.device)]
+    padded = logits[:, tracing.upload(idx, logits.device, "decode_service")]
     m, k = padded, 1
     while k < spw:
         s = min(k, spw - k)
@@ -70,10 +72,10 @@ def shaun_observation_probs(
     """
     logits = logits.to(torch.float32)
     dev = logits.device
-    threshold = torch.tensor(threshold, dtype=torch.float32, device=dev)
-    p = torch.tensor(p, dtype=torch.float32, device=dev)
+    threshold = tracing.upload(threshold, dev, "decode_service", torch.float32)
+    p = tracing.upload(p, dev, "decode_service", torch.float32)
     offset = torch.log(p / (1.0 - p))
-    scale = torch.tensor(scale, dtype=torch.float32, device=dev)
+    scale = tracing.upload(scale, dev, "decode_service", torch.float32)
 
     is_peak = find_peaks(logits, spw)
     any_peak = is_peak.any(dim=1)  # [T]
@@ -115,10 +117,10 @@ def softmax_observation_probs(
     logits = logits.to(torch.float32)
     dev = logits.device
     n_bins = logits.shape[1]
-    vth = torch.tensor(voicing_threshold_logit, dtype=torch.float32, device=dev)
+    vth = tracing.upload(voicing_threshold_logit, dev, "decode_service", torch.float32)
 
     if scaled:
-        priors = torch.tensor(np.asarray(init_probs, np.float32), device=dev)
+        priors = tracing.upload(np.asarray(init_probs, np.float32), dev, "decode_service")
     else:
         priors = torch.ones((n_bins + 1,), dtype=torch.float32, device=dev)
     prior_unvoiced = priors[-1]

@@ -30,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import cuda_lib
+from .. import cuda_lib, tracing
 from .obs import find_peaks
 from .viterbi import NEG_PAD, TINY
 
@@ -219,7 +219,7 @@ def _device_table(table: np.ndarray, dev: torch.device) -> torch.Tensor:
     if key not in _TABLES:
         if len(_TABLES) >= 64:
             _TABLES.clear()
-        _TABLES[key] = torch.as_tensor(table, device=dev)
+        _TABLES[key] = tracing.upload(table, dev, "decode_service")
     return _TABLES[key]
 
 

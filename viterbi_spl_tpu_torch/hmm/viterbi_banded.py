@@ -50,7 +50,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import cuda_lib
+from .. import cuda_lib, tracing
 from . import obs_fused
 from .viterbi import NEG_PAD, TINY, first_argmax
 
@@ -224,8 +224,8 @@ def extract_band_classes(
 def _profiles(bs: BandedStructure, device) -> tuple[torch.Tensor, torch.Tensor]:
     if bs.bv is None or not bs.classes:
         raise ValueError("banded structure carries no source-profile classes")
-    bv = torch.as_tensor(np.ascontiguousarray(bs.bv[:, : bs.S]), device=device)
-    cls = torch.as_tensor(bs.class_of_offset(), device=device)
+    bv = tracing.upload(np.ascontiguousarray(bs.bv[:, : bs.S]), device, "decode")
+    cls = tracing.upload(bs.class_of_offset(), device, "decode")
     return bv, cls
 
 
@@ -381,11 +381,12 @@ def k2_route(bs: BandedStructure, N: int, T: int, last_states) -> str:
     """K2's route for a batch: "pass" or "chain" by k2_takes_pass. Where
     the answer depends on the paths' voiced share, it is estimated by the
     last states' (read from the card: one wait for the forward before K2
-    launches)."""
+    launches, a `decode.wait` span)."""
     lo, hi = (k2_takes_pass(N, T, bs.S, bs.d_max, v) for v in (0.0, 1.0))
     if lo == hi:
         return "pass" if lo else "chain"
-    voiced = float(torch.as_tensor(last_states).ne(bs.n_bins).float().mean())
+    voiced = float(tracing.to_host(torch.as_tensor(last_states).ne(bs.n_bins).float().mean(),
+                                   "decode"))
     return "pass" if k2_takes_pass(N, T, bs.S, bs.d_max, voiced) else "chain"
 
 
@@ -460,8 +461,8 @@ def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths,
         return banded_forward_plain(bs, torch.as_tensor(log_pi), log_obs, lens)
     dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
     bv, cls = _profiles(bs, dev)
-    log_pi = torch.as_tensor(log_pi, dtype=torch.float32).to(dev).contiguous()
-    lens_d = torch.as_tensor(lens, device=dev)
+    log_pi = tracing.upload(log_pi, dev, "decode", torch.float32).contiguous()
+    lens_d = tracing.upload(lens, dev, "decode")
     t1m1 = torch.empty_like(log_obs)
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)
@@ -504,7 +505,7 @@ def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengt
     dev = cuda_lib.cuda_operand(t1m1, "t1m1").device
     bv, cls = _profiles(bs, dev)
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
-    lens_d = torch.as_tensor(lens, device=dev)
+    lens_d = tracing.upload(lens, dev, "decode")
     states = torch.empty((N, T), dtype=torch.int32, device=dev)
     bp = None
     if (route or k2_route(bs, N, T, last)) == "pass":
@@ -544,11 +545,11 @@ def banded_forward_obs(bs: BandedStructure, log_pi, logits: torch.Tensor, length
     model, spw, params, log_prior = obs_fused.obs_params(obs, n_bins)
     if bs.S > 768:
         raise ValueError(f"K9 takes at most 768 states, got {bs.S}")
-    idx = torch.as_tensor(obs_fused.reflect_index(n_bins, spw), device=dev)
-    prior = torch.as_tensor(log_prior, device=dev)
+    idx = tracing.upload(obs_fused.reflect_index(n_bins, spw), dev, "decode")
+    prior = tracing.upload(log_prior, dev, "decode")
     bv, cls = _profiles(bs, dev)
-    log_pi = torch.as_tensor(log_pi, dtype=torch.float32).to(dev).contiguous()
-    lens_d = torch.as_tensor(lens, device=dev)
+    log_pi = tracing.upload(log_pi, dev, "decode", torch.float32).contiguous()
+    lens_d = tracing.upload(lens, dev, "decode")
     t1m1 = torch.empty((N, T, bs.S), dtype=torch.float32, device=dev)
     t1_last = torch.empty((N, bs.S), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)

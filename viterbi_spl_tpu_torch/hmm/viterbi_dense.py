@@ -31,6 +31,13 @@ banded, else the observation kernel (K5/K6) and the dense decode.
 With `mesh` (dist/mesh.py), the batch decode APIs split the tracks over the
 mesh's "data" devices and run the same dispatch on each device's share.
 `viterbi_decode` is the single-track decode over K7 -> K8.
+
+Each batch decode API is a `decode` span (tracing.py; attrs tracks, real
+frames, states, route) holding `decode.prepare` (the host-built tables,
+counted as tables_built), `decode.stage` (viterbi_decode_batch's per-track
+copies), `decode.forward`, `decode.route` (the first-max argmax and K2's
+route, with a `decode.wait` where the route reads the card) and
+`decode.backtrace`.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import cuda_lib
+from .. import cuda_lib, tracing
 from ..utils import on_device, resolve_device
 from . import obs_fused
 from .viterbi import first_argmax, log_obs_fn, prepare_log_params
@@ -49,6 +56,7 @@ from .viterbi_banded import (
     banded_forward,
     banded_forward_obs,
     extract_banded_structure,
+    k2_route,
 )
 
 
@@ -204,8 +212,9 @@ def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, route: str | No
         return dense_forward_plain(log_B, log_pi, log_obs, lens)
     dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
     route = route or k3_route(S)
-    log_pi = log_pi.to(dev).contiguous()
-    lens_d = torch.as_tensor(lens, device=dev)
+    log_B = tracing.upload(log_B, dev, "decode")
+    log_pi = tracing.upload(log_pi, dev, "decode").contiguous()
+    lens_d = tracing.upload(lens, dev, "decode")
     t1m1 = torch.empty_like(log_obs)
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
     P = cuda_lib.ptr
@@ -287,9 +296,9 @@ def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths, segment: in
         if fixups.shape != (N,):
             raise ValueError(f"fixups must be [N={N}], got {tuple(fixups.shape)}")
     L = min(segment or k4_segment_length(N, T, dense_backtrace_resident(S)), T)
-    log_B = log_B.to(dev).contiguous()
+    log_B = tracing.upload(log_B, dev, "decode").contiguous()
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
-    lens_d = torch.as_tensor(lens, device=dev)
+    lens_d = tracing.upload(lens, dev, "decode")
     states = torch.empty((N, T), dtype=torch.int32, device=dev)
     pred = torch.empty((N, -(-T // L)), dtype=torch.int32, device=dev)
     lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
@@ -454,6 +463,26 @@ def decode_over_data(mesh, batch: torch.Tensor, lengths, decode) -> torch.Tensor
     return torch.cat(outs, dim=0)
 
 
+def _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths: np.ndarray, sp) -> torch.Tensor:
+    """The first-max argmax of t1_last, then K2 (its route chosen here) when
+    the structure carries source-profile classes, else K4: the
+    `decode.route` and `decode.backtrace` spans of the decode APIs, for the
+    host lengths of cuda_lib.host_lengths."""
+    N, T, S = t1m1.shape
+    with tracing.span("decode.route"):
+        # first maximum, as np.argmax (documented for torch.argmax)
+        last_states = torch.argmax(t1_last[:, :S], dim=1).to(torch.int32)
+        banded = bstruct is not None and bstruct.classes
+        route = k2_route(bstruct, N, T, last_states) if banded and t1m1.is_cuda else None
+    if sp:
+        sp.set(tracks=N, frames=int(lengths.sum()), states=S,
+               route=(route or "plain") if banded else "dense")
+    with tracing.span("decode.backtrace"):
+        if banded:
+            return banded_backtrace(bstruct, t1m1, last_states, lengths, route=route)
+        return dense_backtrace(log_B, t1m1, last_states, lengths)
+
+
 def viterbi_decode_batch_logobs(
     *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths, mesh=None
 ) -> torch.Tensor:
@@ -461,25 +490,28 @@ def viterbi_decode_batch_logobs(
     with per-track lengths. Returns states [N, T] int32 on log_obs's
     device; entries at or beyond each track's length are unspecified. With
     `mesh`, each "data" device decodes its share of the tracks."""
-    if mesh is not None:
-        return decode_over_data(mesh, log_obs, lengths, lambda x, lens: viterbi_decode_batch_logobs(
-            transition_matrix=transition_matrix, prob_init=prob_init, log_obs=x, lengths=lens))
-    S = np.asarray(transition_matrix).shape[0]
-    N, T, S_obs = log_obs.shape
-    if S_obs != S:
-        raise ValueError(f"log_obs has {S_obs} states, the matrix {S}")
-    log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
-    bstruct = extract_banded_structure(np.asarray(transition_matrix))
-    if bstruct is not None:
-        t1_last, t1m1 = banded_forward(bstruct, log_pi, log_obs, lengths)
-    else:
-        log_B = torch.from_numpy(log_B).to(log_obs.device)  # one upload for K3 and K4
-        t1_last, t1m1 = dense_forward(log_B, log_pi, log_obs, lengths)
-    # first maximum, as np.argmax (documented for torch.argmax)
-    last_states = torch.argmax(t1_last[:, :S], dim=1).to(torch.int32)
-    if bstruct is not None and bstruct.classes:
-        return banded_backtrace(bstruct, t1m1, last_states, lengths)
-    return dense_backtrace(log_B, t1m1, last_states, lengths)
+    with tracing.span("decode") as sp:
+        if mesh is not None:
+            return decode_over_data(
+                mesh, log_obs, lengths, lambda x, lens: viterbi_decode_batch_logobs(
+                    transition_matrix=transition_matrix, prob_init=prob_init, log_obs=x,
+                    lengths=lens))
+        S = np.asarray(transition_matrix).shape[0]
+        N, T, S_obs = log_obs.shape
+        if S_obs != S:
+            raise ValueError(f"log_obs has {S_obs} states, the matrix {S}")
+        with tracing.span("decode.prepare"):
+            log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
+            bstruct = extract_banded_structure(np.asarray(transition_matrix))
+            tracing.count("tables_built")
+        with tracing.span("decode.forward"):
+            lengths = cuda_lib.host_lengths(lengths, N, T)
+            if bstruct is not None:
+                t1_last, t1m1 = banded_forward(bstruct, log_pi, log_obs, lengths)
+            else:
+                log_B = tracing.upload(log_B, log_obs.device, "decode")  # one upload for K3 and K4
+                t1_last, t1m1 = dense_forward(log_B, log_pi, log_obs, lengths)
+        return _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths, sp)
 
 
 def viterbi_decode_batch(
@@ -489,17 +521,22 @@ def viterbi_decode_batch(
     (numpy arrays or tensors). Returns [T_i] int64 state paths, bit-identical
     to the NumPy oracle given the same log observations. With `mesh`, each
     "data" device decodes its share of the tracks."""
-    dev = resolve_device(device)
-    S = np.asarray(transition_matrix).shape[0]
-    lengths = [int(p.shape[1]) for p in probs_st_list]
-    obs = torch.zeros((len(lengths), max(lengths), S), dtype=torch.float32, device=dev)
-    for i, p in enumerate(probs_st_list):
-        obs[i, : lengths[i]] = torch.as_tensor(p, dtype=torch.float32).to(dev).T
-    states = viterbi_decode_batch_logobs(
-        transition_matrix=transition_matrix, prob_init=prob_init,
-        log_obs=log_obs_fn(obs), lengths=lengths, mesh=mesh,
-    ).cpu().numpy()
-    return [states[i, :L].astype(np.int64) for i, L in enumerate(lengths)]
+    with tracing.span("decode") as sp:
+        dev = resolve_device(device)
+        S = np.asarray(transition_matrix).shape[0]
+        lengths = [int(p.shape[1]) for p in probs_st_list]
+        with tracing.span("decode.stage"):
+            obs = torch.zeros((len(lengths), max(lengths), S), dtype=torch.float32, device=dev)
+            for i, p in enumerate(probs_st_list):
+                obs[i, : lengths[i]] = tracing.upload(p, dev, "decode", torch.float32).T
+        if sp:
+            sp.set(tracks=len(lengths), frames=sum(lengths), states=S)
+        states = viterbi_decode_batch_logobs(
+            transition_matrix=transition_matrix, prob_init=prob_init,
+            log_obs=log_obs_fn(obs), lengths=lengths, mesh=mesh,
+        )
+        states = tracing.to_host(states, "decode").numpy()
+        return [states[i, :L].astype(np.int64) for i, L in enumerate(lengths)]
 
 
 def viterbi_decode_batch_fused_obs(
@@ -514,22 +551,26 @@ def viterbi_decode_batch_fused_obs(
     viterbi_decode_batch_logobs (K3/K4). Returns states [N, T] int32 on
     the logits' device; entries at or beyond each track's length are
     unspecified."""
-    if mesh is not None:
-        return decode_over_data(mesh, logits, lengths, lambda x, lens: viterbi_decode_batch_fused_obs(
-            transition_matrix=transition_matrix, prob_init=prob_init, logits=x,
-            lengths=lens, obs=obs))
-    S = np.asarray(transition_matrix).shape[0]
-    if logits.shape[-1] + 1 != S:
-        raise ValueError(f"logits have {logits.shape[-1]} bins, the matrix {S} states")
-    bstruct = extract_banded_structure(np.asarray(transition_matrix))
-    if bstruct is None:
-        return viterbi_decode_batch_logobs(
-            transition_matrix=transition_matrix, prob_init=prob_init,
-            log_obs=obs_fused.log_obs(logits, obs), lengths=lengths,
-        )
-    log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
-    t1_last, t1m1 = banded_forward_obs(bstruct, log_pi, logits, lengths, obs)
-    last_states = torch.argmax(t1_last[:, :S], dim=1).to(torch.int32)
-    if bstruct.classes:
-        return banded_backtrace(bstruct, t1m1, last_states, lengths)
-    return dense_backtrace(log_B, t1m1, last_states, lengths)
+    with tracing.span("decode") as sp:
+        if mesh is not None:
+            return decode_over_data(
+                mesh, logits, lengths, lambda x, lens: viterbi_decode_batch_fused_obs(
+                    transition_matrix=transition_matrix, prob_init=prob_init, logits=x,
+                    lengths=lens, obs=obs))
+        S = np.asarray(transition_matrix).shape[0]
+        if logits.shape[-1] + 1 != S:
+            raise ValueError(f"logits have {logits.shape[-1]} bins, the matrix {S} states")
+        with tracing.span("decode.prepare"):
+            bstruct = extract_banded_structure(np.asarray(transition_matrix))
+            if bstruct is not None:
+                log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
+            tracing.count("tables_built")
+        if bstruct is None:
+            return viterbi_decode_batch_logobs(
+                transition_matrix=transition_matrix, prob_init=prob_init,
+                log_obs=obs_fused.log_obs(logits, obs), lengths=lengths,
+            )
+        with tracing.span("decode.forward"):
+            lengths = cuda_lib.host_lengths(lengths, *logits.shape[:2])
+            t1_last, t1m1 = banded_forward_obs(bstruct, log_pi, logits, lengths, obs)
+        return _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths, sp)

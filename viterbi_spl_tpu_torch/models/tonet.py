@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import tracing
 from .ftanet import FTAModule, FTAUNet, SFModule
 from .layers import F32, Conv, Dense, Dropout, LayerNorm, at_least_f32
 
@@ -175,7 +176,7 @@ class _Branch(nn.Module):
         else:
             h = at_least_f32(self.inp(fa, self.dtype))
             pos = _position_table(self.seg_frame, h.shape[-1])[: fa.shape[1]]
-            h = h + torch.as_tensor(pos, device=h.device)
+            h = h + tracing.upload(pos, h.device, "model")
             h = self.norm(self.drop(h, dropout))
             for layer in self.attn:
                 h = layer(h, dropout)

@@ -5,8 +5,9 @@ selection, logging, timing and profiling, the multi-process runtime.
   unless asked otherwise, never a silent fall back to the CPU),
 - configure_logging — the reference's DEBUG-gated logging with per-library
   suppression (dcnet/softmax_viterbi.py:89-123), stdlib-only,
-- Timer / profile_trace — wall-clock spans, and torch.profiler traces that
-  TensorBoard's profiler plugin and Perfetto read,
+- Timer / profile_trace — wall-clock spans (tracing.timed), and
+  torch.profiler traces that TensorBoard's profiler plugin and Perfetto
+  read, the program's spans among them (tracing.py),
 - initialize_distributed / process_count / process_index — the
   torch.distributed runtime over several processes (gloo: NCCL cannot run
   two ranks on one card, dist/mesh.py),
@@ -20,9 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import time
 
 import torch
+
+from . import tracing
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,7 +74,9 @@ def configure_logging(debug: bool = False) -> None:
 
 
 class Timer:
-    """Accumulating wall-clock timer: `with timer.span("viterbi"): ...`."""
+    """Accumulating wall-clock timer: `with timer.span("viterbi"): ...`. Each
+    span is a `tracing.timed` span (recorded while tracing records), whose
+    seconds add to the timer's totals."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
@@ -80,12 +84,12 @@ class Timer:
 
     @contextlib.contextmanager
     def span(self, name: str):
-        t0 = time.perf_counter()
+        sp = tracing.timed(name)
         try:
-            yield
+            with sp:
+                yield
         finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.totals[name] = self.totals.get(name, 0.0) + sp.seconds
             self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self) -> str:
