@@ -1205,7 +1205,7 @@ def k1_frames(libs, dev, sass=None):
         log_pi = torch.as_tensor(log_pi, device=dev)
         g = torch.Generator(device=dev).manual_seed(3)
         log_obs = torch.rand((max(Ns), T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
-        bv, cls = VB._profiles(bs, dev)
+        bv, cls = VB.banded_profiles(bs, dev)
         lens = torch.full((N,), T, dtype=torch.int32, device=dev)
         obs = log_obs[:N].contiguous()
         t1m1 = torch.empty_like(obs)
@@ -1280,7 +1280,7 @@ def k1_layouts(dev, quad, T=4096):
             run = {C: (lambda C=C: VB.banded_forward(bs, log_pi, o, lengths, cluster=C))
                    for C in layouts}
             if 2 * d_max + 1 <= 31:
-                bv, cls = VB._profiles(bs, dev)
+                bv, cls = VB.banded_profiles(bs, dev)
                 lpi = torch.as_tensor(log_pi, device=dev)
                 lens = torch.as_tensor(lengths, device=dev)
 
@@ -1324,7 +1324,7 @@ def k1_variants(libs, dev, T=4096):
     S = 361
     _, log_pi = prepare_log_params(A, pi)
     lpi = torch.as_tensor(log_pi, device=dev)
-    bv, cls = VB._profiles(bs, dev)
+    bv, cls = VB.banded_profiles(bs, dev)
     g = torch.Generator(device=dev).manual_seed(3)
     log_obs = torch.rand((128, T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
     names = ["shipped"] + list(K1_VARIANTS)
@@ -1385,7 +1385,7 @@ def k1_cluster_variants(libs, dev, T=4096):
     S = 722
     _, log_pi = prepare_log_params(A, pi)
     lpi = torch.as_tensor(log_pi, device=dev)
-    bv, cls = VB._profiles(bs, dev)
+    bv, cls = VB.banded_profiles(bs, dev)
     g = torch.Generator(device=dev).manual_seed(3)
     log_obs = torch.rand((64, T, S), generator=g, device=dev).mul_(20.0).sub_(20.0)
     names = ["shipped"] + list(K1_CLUSTER_VARIANTS)
@@ -1487,7 +1487,7 @@ def k2_split(libs, dev):
         del log_obs
         torch.cuda.empty_cache()
         last = torch.argmax(t1, dim=1).to(torch.int32)
-        bv, cls = VB._profiles(bs, dev)
+        bv, cls = VB.banded_profiles(bs, dev)
         lens = torch.as_tensor(lengths, device=dev)
         bp = torch.empty((N, T, VB.bp_row_entries(S)), dtype=torch.int16, device=dev)
         states = torch.empty((N, T), dtype=torch.int32, device=dev)

@@ -1,10 +1,14 @@
 """The port's decode service end to end against the JAX package: .dat
 artifacts, DecoderSetup, evaluate_posteriorgrams and the decode CLI, on
-the CPU (`device="cpu"`); plus the import boundary and the device rule."""
+the CPU (`device="cpu"`); plus the import boundary, the device rule and
+the decode APIs' cache of prepared HMMs (hmm/prepared.py): each HMM built
+once, found again by content, rebuilt when edited, the oldest evicted,
+safe under threads, with paths equal to the oracle's throughout."""
 
 import dataclasses
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +22,7 @@ from viterbi_spl_tpu.families import family_spec as jax_family_spec
 from viterbi_spl_tpu.harness import evaluate as JE
 from viterbi_spl_tpu.hmm import params as JP
 from viterbi_spl_tpu.io import array_file as JA
+from viterbi_spl_tpu_torch import tracing
 from viterbi_spl_tpu_torch.cli import decode as TD
 from viterbi_spl_tpu_torch.cli.hmm_artifacts import (
     build_hmm_artifacts,
@@ -26,6 +31,12 @@ from viterbi_spl_tpu_torch.cli.hmm_artifacts import (
 )
 from viterbi_spl_tpu_torch.families import FAMILIES, family_spec
 from viterbi_spl_tpu_torch.harness import evaluate as TE
+from viterbi_spl_tpu_torch.hmm import obs_fused as OF
+from viterbi_spl_tpu_torch.hmm import params as TP
+from viterbi_spl_tpu_torch.hmm import prepared as HP
+from viterbi_spl_tpu_torch.hmm import viterbi_dense as TVD
+from viterbi_spl_tpu_torch.hmm.oracle import viterbi_oracle, viterbi_oracle_log
+from viterbi_spl_tpu_torch.hmm.viterbi import prepare_log_params
 from viterbi_spl_tpu_torch.io import array_file as TA
 from viterbi_spl_tpu_torch.metrics.mel_eval import midi_to_hz
 
@@ -239,3 +250,142 @@ def test_default_device_raises_without_cuda(monkeypatch, rng):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TE.DecoderSetup(**kw, device="cuda")
     assert TE.DecoderSetup(**kw, device="cpu").device.type == "cpu"
+
+
+def _small_shaped(rng, n_bins=16, d_max=3):
+    walk = [np.clip(n_bins // 2 + np.cumsum(rng.integers(-2, 3, 600)), 0, n_bins - 1)]
+    stats = TP.count_statistics(walk, n_bins)
+    A = TP.shape_transition_matrix(stats.transition_counts,
+                                   np.array([[0.95, 0.05], [0.1, 0.9]]), n_bins, d_max, 2)
+    return A, TP.shape_init_probs(stats.p_steady, p_th=1e-4)
+
+
+def _traced_decode(A, pi, tracks):
+    """viterbi_decode_batch on the CPU with spans recording: (paths, spans)."""
+    tracing.clear()
+    with tracing.enabled():
+        paths = TVD.viterbi_decode_batch(transition_matrix=A, prob_init=pi, probs_st_list=tracks,
+                                         device="cpu")
+    spans = tracing.spans()
+    tracing.clear()
+    return paths, spans
+
+
+def _counts(spans):
+    return tuple(sum(s.counts.get(k, 0) for s in spans) for k in ("tables_built", "tables_reused"))
+
+
+def _assert_oracle(paths, A, pi, tracks):
+    for p, obs in zip(paths, tracks):
+        np.testing.assert_array_equal(p, viterbi_oracle(transition_matrix=A, prob_init=pi,
+                                                        probs_st=obs))
+
+
+@pytest.mark.parametrize("case", ["repeat", "equal_copy", "edited_in_place", "other_pi", "dense",
+                                  "evicted"])
+def test_decode_apis_prepare_each_hmm_once(rng, case):
+    """A first decode builds the prepared HMM (tables_built 1); a second
+    finds it (tables_reused 1) for the same matrix or an equal copy, and
+    builds anew for a matrix edited in place, another pi, or an HMM the
+    cache evicted for newer ones. A dense matrix is cached without a band
+    and takes K3/K4's route. Paths equal the oracle's on every call."""
+    HP.clear()
+    A, pi = random_hmm(rng, 17, 4)[:2] if case == "dense" else _small_shaped(rng)
+    S = A.shape[0]
+    tracks = [random_hmm(rng, S, T, sparse_obs=True)[2] for T in (23, 1, 40)]
+    paths, spans = _traced_decode(A, pi, tracks)
+    assert _counts(spans) == (1, 0)
+    _assert_oracle(paths, A, pi, tracks)
+    hmm = HP.cached()[-1]
+    if case == "dense":
+        assert hmm.banded is None and hmm.card("cpu").log_B is not None
+        assert {s.attrs.get("route") for s in spans if s.name == "decode"} == {None, "dense"}
+    else:
+        assert hmm.banded is not None and hmm.card("cpu").profiles is not None
+    A2, pi2, want = A, pi, (0, 1)
+    if case == "equal_copy":
+        A2, pi2 = A.copy(), pi.copy()
+    elif case == "edited_in_place":
+        old = [viterbi_oracle(transition_matrix=A, prob_init=pi, probs_st=o) for o in tracks]
+        A[...] = _small_shaped(rng, d_max=1)[0]
+        new = [viterbi_oracle(transition_matrix=A, prob_init=pi, probs_st=o) for o in tracks]
+        assert any((a != b).any() for a, b in zip(old, new))
+        want = (1, 0)
+    elif case == "other_pi":
+        pi2, want = np.roll(pi, 3), (1, 0)
+    elif case == "evicted":
+        for k in range(HP.CACHE_SIZE):
+            _traced_decode(A, np.roll(pi, k + 1), tracks[:1])
+        assert hmm not in HP.cached() and len(HP.cached()) == HP.CACHE_SIZE
+        want = (1, 0)
+    paths, spans = _traced_decode(A2, pi2, tracks)
+    assert _counts(spans) == want
+    _assert_oracle(paths, A2, pi2, tracks)
+    assert len(HP.cached()) <= HP.CACHE_SIZE
+
+
+@pytest.mark.parametrize("fused_obs", [False, True])
+def test_decoder_setup_hands_its_prepared_hmm_to_the_apis(rng, fused_obs):
+    """A DecoderSetup builds its prepared HMM once, when it is made: its
+    first decode builds nothing, even with the cache emptied since, and
+    decodes as the oracle does."""
+    A, pi = _small_shaped(rng)
+    n_bins = A.shape[0] - 1
+    setup = TE.DecoderSetup(transition_matrix=A, init_probs=pi, n_bins=n_bins, note_min=40.0,
+                            bins_per_semitone=1.0, spw=2, voicing_threshold=0.4,
+                            hop_seconds=0.01, fused_obs=fused_obs, device="cpu")
+    HP.clear()
+    logits = [rng.normal(size=(T, n_bins)).astype(np.float32) for T in (30, 9)]
+    tracing.clear()
+    with tracing.enabled():
+        got = setup.decode_batch(logits)
+    assert _counts(tracing.spans()) == (0, 1) and HP.cached() == []
+    tracing.clear()
+    log_B, log_pi = prepare_log_params(A, pi)
+    for lg, (voiced, bins) in zip(logits, got):
+        if fused_obs:
+            log_obs = OF.log_obs_plain(torch.from_numpy(lg)[None], setup.obs_config())[0]
+            want = viterbi_oracle_log(log_B, log_pi, log_obs.numpy())
+        else:
+            obs = setup.observation_probs(lg).numpy()
+            want = viterbi_oracle(transition_matrix=A, prob_init=pi, probs_st=obs.T)
+        np.testing.assert_array_equal(voiced, want < n_bins)
+        np.testing.assert_array_equal(bins, np.minimum(want, n_bins - 1))
+
+
+def test_prepared_hmm_cache_under_threads():
+    """More threads than cores look up more HMMs than the cache holds, with
+    a short switch interval: every lookup returns its own HMM, the cache
+    never holds two equal entries nor more than CACHE_SIZE, and a device's
+    card tables are made once an HMM."""
+    HP.clear()
+    rng = np.random.default_rng(7)
+    hmms = [random_hmm(rng, 6, 1)[:2] for _ in range(HP.CACHE_SIZE + 2)]
+    faults = []
+
+    def work(k):
+        for i in range(60):
+            A, pi = hmms[(k + i) % len(hmms)]
+            got = HP.prepared_hmm(A, pi)
+            if not got.matches(np.float32(A), np.float32(pi)):
+                faults.append("wrong hmm")
+            if got.card("cpu") is not got.card("cpu"):
+                faults.append("card tables made twice")
+            cached = HP.cached()
+            if len(cached) > HP.CACHE_SIZE or len({id(h) for h in cached}) != len(cached) or any(
+                    a.matches(b.A, b.pi) for i, a in enumerate(cached) for b in cached[i + 1:]):
+                faults.append("cache broken")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert faults == []
+    HP.clear()

@@ -15,7 +15,8 @@ bit-equal to K5/K6 -> K1, at its own producer and ring layout and at
 others; K7/K8 (the window kernels) exactly, with reset
 rows, at 8- and 16-block cluster sizes and over more windows than one wave
 holds, and the time-block decode's launches over a mesh of blocks on one
-card.
+card; the decode APIs' repeat taking the prepared HMM's card tables, with
+one upload (the lengths) on each route.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so that it also runs where jax is absent:
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from viterbi_spl_tpu_torch import tracing
 from viterbi_spl_tpu_torch.hmm import fixtures as FX
 from viterbi_spl_tpu_torch.hmm import obs_fused as OF
 from viterbi_spl_tpu_torch.hmm import params as TP
@@ -567,6 +569,55 @@ def test_fused_decode_api_runs_the_kernels(cuda, rng):
             np.testing.assert_array_equal(
                 got[n, :L], viterbi_oracle_log(log_B, log_pi, log_obs[n, :L])
             )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["K9", "K1", "K3"])
+def test_decode_api_uploads_only_the_lengths(cuda, rng, route):
+    """A decode API's repeat on the card takes the prepared HMM's card tables:
+    tables_reused 1 and no build, one blocking copy (the lengths, before the
+    forward), none after it, the kernels of its route launched once each,
+    and paths equal the oracle's on the card's own log observations."""
+    n_bins = 120
+    A, pi = _shaped(rng, n_bins, 8) if route != "K3" else (
+        TP.imm_transition_matrix(4, n_bins), np.full(n_bins + 1, 1.0 / (n_bins + 1)))
+    lens = np.array([70, 1, 33], np.int32)
+    lg = rng.normal(-2, 1, (3, 70, n_bins)).astype(np.float32)
+    lg[:, np.arange(70), 60 + np.arange(70) // 7] += 6.0
+    lg = torch.from_numpy(lg).to(cuda)
+    obs = _obs_cfg(rng, "shaun", n_bins, 5)
+    log_obs = OF.log_obs(lg, obs)
+    if route == "K9":
+        def decode():
+            return TD.viterbi_decode_batch_fused_obs(transition_matrix=A, prob_init=pi, logits=lg,
+                                                     lengths=lens, obs=obs)
+    else:
+        def decode():
+            return TD.viterbi_decode_batch_logobs(transition_matrix=A, prob_init=pi,
+                                                  log_obs=log_obs, lengths=lens)
+    first = decode().cpu().numpy()
+    kernels = {"K9": ("K9", "K2"), "K1": ("K1", "K2"), "K3": ("K3", "K4")}[route]
+    tracing.clear()
+    with tracing.enabled():
+        again, made = TD.counted_launches(decode)
+        again = again.cpu().numpy()
+    spans = tracing.spans()
+    tracing.clear()
+    assert made == {k: 1 for k in kernels}
+    assert sum(s.counts.get("tables_built", 0) for s in spans) == 0
+    assert sum(s.counts.get("tables_reused", 0) for s in spans) == 1
+    decode_span = next(s for s in spans if s.name == "decode")
+    forward = next(s for s in spans if s.name == "decode.forward")
+    waits = [s for s in spans if s.name == "decode.wait"]
+    assert len(waits) == 1 and waits[0].parent == forward.id
+    assert waits[0].counts == {"host_waits": 1, "h2d_bytes": 4 * len(lens)}
+    assert decode_span.attrs["route"] == ("dense" if route == "K3" else "pass")
+    log_B, log_pi = prepare_log_params(A, pi)
+    host_obs = log_obs.cpu().numpy()
+    for n, L in enumerate(lens):
+        want = viterbi_oracle_log(log_B, log_pi, host_obs[n, :L])
+        np.testing.assert_array_equal(first[n, :L], want)
+        np.testing.assert_array_equal(again[n, :L], want)
 
 
 RESETS = np.array([0, -1, 16, 0, -1, 5], np.int32)  # K7's reset rows, each < its length

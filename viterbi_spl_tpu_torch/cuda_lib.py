@@ -115,6 +115,17 @@ def host_lengths(lengths, N: int, T: int) -> np.ndarray:
     return lengths
 
 
+def card_lengths(lengths: np.ndarray, device, lens_d: torch.Tensor | None = None) -> torch.Tensor:
+    """host_lengths' lengths on the card: lens_d where the caller holds
+    them there already (the same values, one upload serving a decode's
+    kernels), else uploaded now (a `decode.wait` span)."""
+    if lens_d is None:
+        return tracing.upload(lengths, device, "decode")
+    if lens_d.shape != lengths.shape:
+        raise ValueError(f"lens_d must be [N={len(lengths)}], got {tuple(lens_d.shape)}")
+    return cuda_operand(lens_d, "lens_d", torch.int32)
+
+
 def cuda_operand(x: torch.Tensor, name: str, dtype=torch.float32) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")

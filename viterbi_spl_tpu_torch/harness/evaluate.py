@@ -32,7 +32,7 @@ from .. import tracing
 from ..dist.mesh import Mesh
 from ..hmm import obs_fused
 from ..hmm.obs import shaun_observation_probs, softmax_observation_probs
-from ..hmm.viterbi import prepare_log_params
+from ..hmm.prepared import prepared_hmm
 from ..hmm.viterbi_dense import viterbi_decode_batch, viterbi_decode_batch_logobs
 from ..metrics.mel_eval import est_notes_with_voicing_to_hz, evaluate_melody
 from ..metrics.melody import (
@@ -87,8 +87,11 @@ class DecoderSetup:
         self.device = resolve_device(self.device)
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise ValueError(f"mesh must be a viterbi_spl_tpu_torch.dist.Mesh, got {type(self.mesh)}")
-        # validates A and pi; the decode API derives its tables the same way
-        prepare_log_params(self.transition_matrix, self.init_probs)
+        # the decode's tables, host and card, built (and A and pi validated)
+        # once; the decode paths hand them to the decode APIs
+        self.hmm = prepared_hmm(self.transition_matrix, self.init_probs)
+        if self.mesh is None:
+            self.hmm.card(self.device)
 
     @classmethod
     def from_numpy(cls, fields: dict, device=None) -> "DecoderSetup":
@@ -139,6 +142,7 @@ class DecoderSetup:
                 probs_st_list=[o.T for o in obs_list],
                 device=self.device,
                 mesh=self.mesh,
+                hmm=self.hmm,
             )
             out = []
             for states in states_list:
@@ -170,7 +174,7 @@ class DecoderSetup:
             log_obs = obs_fused.log_obs(logits, self.obs_config())
         states = viterbi_decode_batch_logobs(
             transition_matrix=self.transition_matrix, prob_init=self.init_probs,
-            log_obs=log_obs, lengths=lengths, mesh=self.mesh,
+            log_obs=log_obs, lengths=lengths, mesh=self.mesh, hmm=self.hmm,
         )
         states = tracing.to_host(states, "decode_service").numpy()
         out = []

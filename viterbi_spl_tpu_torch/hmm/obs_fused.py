@@ -211,15 +211,17 @@ def obs_layout(n_bins: int, spw: int) -> tuple[int, int, int]:
 _TABLES: dict = {}
 
 
-def _device_table(table: np.ndarray, dev: torch.device) -> torch.Tensor:
+def device_table(table: np.ndarray, dev: torch.device, layer: str = "decode_service"
+                 ) -> torch.Tensor:
     """A small host table (the reflect index map, a log-prior row) on the
-    card, uploaded once: an upload from pageable memory waits for the
-    stream, which would leave the card idle between back-to-back calls."""
+    card, uploaded once (a `<layer>.wait` span): an upload from pageable
+    memory waits for the stream, which would leave the card idle between
+    back-to-back calls."""
     key = (str(dev), table.dtype.str, table.tobytes())
     if key not in _TABLES:
         if len(_TABLES) >= 64:
             _TABLES.clear()
-        _TABLES[key] = tracing.upload(table, dev, "decode_service")
+        _TABLES[key] = tracing.upload(table, dev, layer)
     return _TABLES[key]
 
 
@@ -238,7 +240,7 @@ def _launch(logits: torch.Tensor, spw: int, params, log_prior=None, layout=None)
         raise ValueError(f"K5/K6 takes 1-{max(OBS_CONSUMERS)} consumer warps and at least the "
                          f"stages a consumer's stride spans, not {layout}")
     dev = cuda_lib.cuda_operand(logits, "logits").device
-    idx = _device_table(reflect_index(n_bins, spw), dev)
+    idx = device_table(reflect_index(n_bins, spw), dev)
     out = torch.empty((N, T, n_bins + 1), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("obs", _SIGNATURES)
     P = cuda_lib.ptr
@@ -249,7 +251,7 @@ def _launch(logits: torch.Tensor, spw: int, params, log_prior=None, layout=None)
                                     *map(float, params[:3]), LOG_TINY_F32, *layout, stream)
     else:
         name = "vspl_softmax_log_obs"
-        prior = _device_table(np.asarray(log_prior, np.float32), dev)
+        prior = device_table(np.asarray(log_prior, np.float32), dev)
         rc = lib.vspl_softmax_log_obs(P(logits), P(idx), P(prior), P(out), N * T, n_bins,
                                       spw, *map(float, params[:2]), LOG_TINY_F32, *layout, stream)
     cuda_lib.check(lib, rc, name)

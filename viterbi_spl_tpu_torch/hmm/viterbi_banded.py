@@ -221,7 +221,9 @@ def extract_band_classes(
 # ----------------------------------------------------------------------
 
 
-def _profiles(bs: BandedStructure, device) -> tuple[torch.Tensor, torch.Tensor]:
+def banded_profiles(bs: BandedStructure, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bv [classes, S] f32, cls [2 d_max + 1] int32): the source profiles
+    and each offset's class, uploaded to `device`."""
     if bs.bv is None or not bs.classes:
         raise ValueError("banded structure carries no source-profile classes")
     bv = tracing.upload(np.ascontiguousarray(bs.bv[:, : bs.S]), device, "decode")
@@ -236,7 +238,7 @@ def banded_forward_plain(bs: BandedStructure, log_pi, log_obs, lengths):
     N, T, S = log_obs.shape
     n, d_max = bs.n_bins, bs.d_max
     dev = log_obs.device
-    bv, cls = _profiles(bs, dev)
+    bv, cls = banded_profiles(bs, dev)
     cls = cls.tolist()
     bv = bv[:, :n]
     lengths = torch.as_tensor(lengths, device=dev)
@@ -267,7 +269,7 @@ def rebuilt_rows(bs: BandedStructure, device) -> torch.Tensor:
     unvoiced source; the uv row for the unvoiced target), the values the
     kernels use."""
     S, n, d_max = bs.S, bs.n_bins, bs.d_max
-    bv, cls = _profiles(bs, device)
+    bv, cls = banded_profiles(bs, device)
     x = torch.arange(S, device=device)[None, :]
     s = torch.arange(S, device=device)[:, None]
     e = x - s  # offset of source x from target s
@@ -447,12 +449,14 @@ def k1_cluster(N: int, S: int, d_max: int, sms: int = 132) -> int:
 
 
 def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths,
-                   cluster: int | None = None):
+                   cluster: int | None = None, profiles=None, lens_d=None):
     """K1: banded batched forward DP. Same contract as banded_forward_plain;
     on the GPU, rows of t1m1 at or beyond a track's length are left
     unwritten (the backtrace never reads them). cluster: the layout (0: one
     block per track; C >= 1: a cluster of C blocks per track); None takes
-    k1_cluster's."""
+    k1_cluster's. On the card, profiles (banded_profiles' pair) and lens_d
+    (the lengths as an int32 tensor, the same values) are taken where given
+    instead of uploaded, as is log_pi where it is on the card."""
     N, T, S = log_obs.shape
     if S != bs.S:
         raise ValueError(f"log_obs has {S} states, the structure {bs.S}")
@@ -460,9 +464,9 @@ def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths,
     if log_obs.device.type == "cpu":
         return banded_forward_plain(bs, torch.as_tensor(log_pi), log_obs, lens)
     dev = cuda_lib.cuda_operand(log_obs, "log_obs").device
-    bv, cls = _profiles(bs, dev)
+    bv, cls = banded_profiles(bs, dev) if profiles is None else profiles
+    lens_d = cuda_lib.card_lengths(lens, dev, lens_d)
     log_pi = tracing.upload(log_pi, dev, "decode", torch.float32).contiguous()
-    lens_d = tracing.upload(lens, dev, "decode")
     t1m1 = torch.empty_like(log_obs)
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)
@@ -487,13 +491,14 @@ def banded_forward(bs: BandedStructure, log_pi, log_obs: torch.Tensor, lengths,
 
 
 def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengths,
-                     route: str | None = None):
+                     route: str | None = None, profiles=None, lens_d=None):
     """K2: banded batched reverse chase. Returns states [N, T] int32;
     entries at or beyond each track's length are unspecified. On the card,
     by route "pass", a parallel pass writes every backpointer into an int16
     scratch [N, T, bp_row_entries(S)], then one thread per track chases
     them (two kernels, one counted launch); by route "chain", one warp per
-    track takes each step's argmax. None takes k2_route's choice."""
+    track takes each step's argmax. None takes k2_route's choice.
+    profiles, lens_d: as banded_forward's."""
     N, T, S = t1m1.shape
     if S != bs.S:
         raise ValueError(f"t1m1 has {S} states, the structure {bs.S}")
@@ -503,9 +508,9 @@ def banded_backtrace(bs: BandedStructure, t1m1: torch.Tensor, last_states, lengt
     if t1m1.device.type == "cpu":
         return banded_backtrace_plain(bs, t1m1, last_states, lens)
     dev = cuda_lib.cuda_operand(t1m1, "t1m1").device
-    bv, cls = _profiles(bs, dev)
+    bv, cls = banded_profiles(bs, dev) if profiles is None else profiles
+    lens_d = cuda_lib.card_lengths(lens, dev, lens_d)
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
-    lens_d = tracing.upload(lens, dev, "decode")
     states = torch.empty((N, T), dtype=torch.int32, device=dev)
     bp = None
     if (route or k2_route(bs, N, T, last)) == "pass":
@@ -529,12 +534,15 @@ def banded_forward_obs_plain(bs: BandedStructure, log_pi, logits, lengths, obs: 
     return banded_forward_plain(bs, torch.as_tensor(log_pi).to(logits.device), log_obs, lengths)
 
 
-def banded_forward_obs(bs: BandedStructure, log_pi, logits: torch.Tensor, lengths, obs: dict):
+def banded_forward_obs(bs: BandedStructure, log_pi, logits: torch.Tensor, lengths, obs: dict,
+                       profiles=None, lens_d=None):
     """K9: the banded batched forward DP with the observation model computed
     inside it (counterpart of viterbi_forward_pallas_banded_batch_obs):
     raw logits [N, T, n_bins] f32 and the JAX package's obs dict (see
     hmm/obs_fused.py::obs_params). Returns (t1_last, t1m1) as K1 does fed
-    with K5/K6's output — on the GPU bit for bit."""
+    with K5/K6's output — on the GPU bit for bit. profiles, lens_d and
+    log_pi: as banded_forward's; the observation model's index map and
+    log-prior row are uploaded once a device (obs_fused's card tables)."""
     N, T, n_bins = logits.shape
     if n_bins + 1 != bs.S:
         raise ValueError(f"logits have {n_bins} bins, the structure {bs.S - 1}")
@@ -545,11 +553,11 @@ def banded_forward_obs(bs: BandedStructure, log_pi, logits: torch.Tensor, length
     model, spw, params, log_prior = obs_fused.obs_params(obs, n_bins)
     if bs.S > 768:
         raise ValueError(f"K9 takes at most 768 states, got {bs.S}")
-    idx = tracing.upload(obs_fused.reflect_index(n_bins, spw), dev, "decode")
-    prior = tracing.upload(log_prior, dev, "decode")
-    bv, cls = _profiles(bs, dev)
+    idx = obs_fused.device_table(obs_fused.reflect_index(n_bins, spw), dev, "decode")
+    prior = obs_fused.device_table(log_prior, dev, "decode")
+    bv, cls = banded_profiles(bs, dev) if profiles is None else profiles
+    lens_d = cuda_lib.card_lengths(lens, dev, lens_d)
     log_pi = tracing.upload(log_pi, dev, "decode", torch.float32).contiguous()
-    lens_d = tracing.upload(lens, dev, "decode")
     t1m1 = torch.empty((N, T, bs.S), dtype=torch.float32, device=dev)
     t1_last = torch.empty((N, bs.S), dtype=torch.float32, device=dev)
     lib = cuda_lib.load("viterbi_banded", _SIGNATURES)

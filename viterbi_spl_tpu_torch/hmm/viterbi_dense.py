@@ -28,16 +28,27 @@ or S.
 forward with the observation model inside it (K9) when the structure is
 banded, else the observation kernel (K5/K6) and the dense decode.
 
+The batch decode APIs take their tables from one prepared HMM per
+(transition matrix, initial probabilities) (hmm/prepared.py): host tables
+built once, their card copies uploaded once a device. A call uploads only
+its lengths, once, before its first kernel, and both kernels read that
+copy; after the forward is launched, nothing on the host waits for the
+card until the caller reads the states (unless k2_route must read the last
+states).
+
 With `mesh` (dist/mesh.py), the batch decode APIs split the tracks over the
-mesh's "data" devices and run the same dispatch on each device's share.
-`viterbi_decode` is the single-track decode over K7 -> K8.
+mesh's "data" devices and run the same dispatch on each device's share,
+each device with its own card copies. `viterbi_decode` is the single-track
+decode over K7 -> K8.
 
 Each batch decode API is a `decode` span (tracing.py; attrs tracks, real
-frames, states, route) holding `decode.prepare` (the host-built tables,
-counted as tables_built), `decode.stage` (viterbi_decode_batch's per-track
-copies), `decode.forward`, `decode.route` (the first-max argmax and K2's
-route, with a `decode.wait` where the route reads the card) and
-`decode.backtrace`.
+frames, states, route) holding `decode.prepare` (the prepared HMM's
+lookup, counted as tables_reused, or its build, counted as tables_built),
+`decode.stage` (viterbi_decode_batch's per-track copies), `decode.forward`
+(with the lengths' upload, a `decode.wait`), `decode.route` (the first-max
+argmax and K2's route, with a `decode.wait` where the route reads the
+card) and `decode.backtrace`; over a mesh, each share is a `decode` span
+of its own.
 """
 
 from __future__ import annotations
@@ -50,14 +61,9 @@ import torch
 from .. import cuda_lib, tracing
 from ..utils import on_device, resolve_device
 from . import obs_fused
+from .prepared import PreparedHMM, prepared_hmm
 from .viterbi import first_argmax, log_obs_fn, prepare_log_params
-from .viterbi_banded import (
-    banded_backtrace,
-    banded_forward,
-    banded_forward_obs,
-    extract_banded_structure,
-    k2_route,
-)
+from .viterbi_banded import banded_backtrace, banded_forward, banded_forward_obs, k2_route
 
 
 def window_forward_plain(log_B, log_pi, log_obs, lengths, reset_rows):
@@ -194,12 +200,14 @@ def window_max_clusters(S: int) -> int:
 
 
 def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, route: str | None = None,
-                  tracks: int | None = None):
+                  tracks: int | None = None, lens_d=None):
     """K3: dense batched forward DP. Same contract as dense_forward_plain;
     on the GPU, rows of t1m1 at or beyond a track's length are left
     unwritten. route: "window" or "cluster" (DENSE_ROUTES); None takes
     k3_route's. tracks: the window route's tracks a cluster (1-4); None
-    takes k3_tracks_per_cluster's."""
+    takes k3_tracks_per_cluster's. On the card, log_B and log_pi are
+    uploaded unless there already, and lens_d (the lengths as an int32
+    tensor there, the same values) is taken where given."""
     N, T, S = log_obs.shape
     lens = cuda_lib.host_lengths(lengths, N, T)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
@@ -214,7 +222,7 @@ def dense_forward(log_B, log_pi, log_obs: torch.Tensor, lengths, route: str | No
     route = route or k3_route(S)
     log_B = tracing.upload(log_B, dev, "decode")
     log_pi = tracing.upload(log_pi, dev, "decode").contiguous()
-    lens_d = tracing.upload(lens, dev, "decode")
+    lens_d = cuda_lib.card_lengths(lens, dev, lens_d)
     t1m1 = torch.empty_like(log_obs)
     t1_last = torch.empty((N, S), dtype=torch.float32, device=dev)
     P = cuda_lib.ptr
@@ -273,14 +281,15 @@ def dense_backtrace_resident(S: int) -> int:
 
 
 def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths, segment: int | None = None,
-                    warmup: int = K4_WARMUP, fixups: torch.Tensor | None = None):
+                    warmup: int = K4_WARMUP, fixups: torch.Tensor | None = None, lens_d=None):
     """K4: dense batched reverse chase. Returns states [N, T] int32;
     entries at or beyond each track's length are unspecified. On the card
     each track is chased in segments of `segment` frames (None:
     k4_segment_length's; T or more: one segment, the plain chain), each
     segment's chase starting `warmup` frames above it, then the seams made
     exact (two kernels, one counted launch). fixups: an int32 [N] CUDA
-    tensor that receives the frames each track's seams re-chased."""
+    tensor that receives the frames each track's seams re-chased. log_B
+    and lens_d: as dense_forward's."""
     N, T, S = t1m1.shape
     lens = cuda_lib.host_lengths(lengths, N, T)
     log_B = torch.as_tensor(log_B, dtype=torch.float32)
@@ -298,7 +307,7 @@ def dense_backtrace(log_B, t1m1: torch.Tensor, last_states, lengths, segment: in
     L = min(segment or k4_segment_length(N, T, dense_backtrace_resident(S)), T)
     log_B = tracing.upload(log_B, dev, "decode").contiguous()
     last = torch.as_tensor(last_states).to(dev, torch.int32).contiguous()
-    lens_d = tracing.upload(lens, dev, "decode")
+    lens_d = cuda_lib.card_lengths(lens, dev, lens_d)
     states = torch.empty((N, T), dtype=torch.int32, device=dev)
     pred = torch.empty((N, -(-T // L)), dtype=torch.int32, device=dev)
     lib = cuda_lib.load("viterbi_dense", _SIGNATURES)
@@ -463,12 +472,30 @@ def decode_over_data(mesh, batch: torch.Tensor, lengths, decode) -> torch.Tensor
     return torch.cat(outs, dim=0)
 
 
-def _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths: np.ndarray, sp) -> torch.Tensor:
+def _prepare(transition_matrix, prob_init, hmm) -> PreparedHMM:
+    """The decode APIs' `decode.prepare` span: the prepared HMM's lookup
+    (prepared.prepared_hmm, `hmm` the caller's hint), or its build."""
+    with tracing.span("decode.prepare"):
+        return prepared_hmm(transition_matrix, prob_init, hmm)
+
+
+def _in_decode_span(fn, hmm: PreparedHMM, **kwargs):
+    """fn(hmm, share, share_lengths, span, **kwargs) in a `decode` span of
+    its own, for decode_over_data's shares."""
+    def decode(x, lens):
+        with tracing.span("decode") as sp:
+            return fn(hmm, x, lens, sp, **kwargs)
+    return decode
+
+
+def _route_and_backtrace(hmm: PreparedHMM, card, t1_last, t1m1, lengths: np.ndarray, lens_d,
+                         sp) -> torch.Tensor:
     """The first-max argmax of t1_last, then K2 (its route chosen here) when
     the structure carries source-profile classes, else K4: the
     `decode.route` and `decode.backtrace` spans of the decode APIs, for the
-    host lengths of cuda_lib.host_lengths."""
+    host lengths of cuda_lib.host_lengths and their copy on the card."""
     N, T, S = t1m1.shape
+    bstruct = hmm.banded
     with tracing.span("decode.route"):
         # first maximum, as np.argmax (documented for torch.argmax)
         last_states = torch.argmax(t1_last[:, :S], dim=1).to(torch.int32)
@@ -479,48 +506,70 @@ def _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths: np.ndarray, sp)
                route=(route or "plain") if banded else "dense")
     with tracing.span("decode.backtrace"):
         if banded:
-            return banded_backtrace(bstruct, t1m1, last_states, lengths, route=route)
-        return dense_backtrace(log_B, t1m1, last_states, lengths)
+            return banded_backtrace(bstruct, t1m1, last_states, lengths, route=route,
+                                    profiles=card.profiles, lens_d=lens_d)
+        return dense_backtrace(card.log_B, t1m1, last_states, lengths, lens_d=lens_d)
+
+
+def _decode_logobs(hmm: PreparedHMM, log_obs: torch.Tensor, lengths, sp) -> torch.Tensor:
+    """K1 -> K2 (K3 -> K4 without a band) on one device, the lengths
+    uploaded once before K1."""
+    N, T, S = log_obs.shape
+    if S != hmm.S:
+        raise ValueError(f"log_obs has {S} states, the matrix {hmm.S}")
+    with tracing.span("decode.forward"):
+        card = hmm.card(log_obs.device)
+        lengths = cuda_lib.host_lengths(lengths, N, T)
+        lens_d = tracing.upload(lengths, log_obs.device, "decode")
+        if hmm.banded is not None:
+            t1_last, t1m1 = banded_forward(hmm.banded, card.log_pi, log_obs, lengths,
+                                           profiles=card.profiles, lens_d=lens_d)
+        else:
+            t1_last, t1m1 = dense_forward(card.log_B, card.log_pi, log_obs, lengths,
+                                          lens_d=lens_d)
+    return _route_and_backtrace(hmm, card, t1_last, t1m1, lengths, lens_d, sp)
+
+
+def _decode_fused(hmm: PreparedHMM, logits: torch.Tensor, lengths, sp, obs: dict) -> torch.Tensor:
+    """K9 -> K2 on one device, the lengths uploaded once before K9; without
+    a band, K5/K6 then _decode_logobs."""
+    if logits.shape[-1] + 1 != hmm.S:
+        raise ValueError(f"logits have {logits.shape[-1]} bins, the matrix {hmm.S} states")
+    if hmm.banded is None:
+        return _decode_logobs(hmm, obs_fused.log_obs(logits, obs), lengths, sp)
+    with tracing.span("decode.forward"):
+        card = hmm.card(logits.device)
+        lengths = cuda_lib.host_lengths(lengths, *logits.shape[:2])
+        lens_d = tracing.upload(lengths, logits.device, "decode")
+        t1_last, t1m1 = banded_forward_obs(hmm.banded, card.log_pi, logits, lengths, obs,
+                                           profiles=card.profiles, lens_d=lens_d)
+    return _route_and_backtrace(hmm, card, t1_last, t1m1, lengths, lens_d, sp)
 
 
 def viterbi_decode_batch_logobs(
-    *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths, mesh=None
+    *, transition_matrix, prob_init, log_obs: torch.Tensor, lengths, mesh=None, hmm=None
 ) -> torch.Tensor:
     """Decode a [N, T, S] batch of LOG observations (unvoiced state last)
     with per-track lengths. Returns states [N, T] int32 on log_obs's
     device; entries at or beyond each track's length are unspecified. With
-    `mesh`, each "data" device decodes its share of the tracks."""
+    `mesh`, each "data" device decodes its share of the tracks. hmm: a
+    prepared HMM (hmm/prepared.py) the caller holds, taken where it holds
+    the same matrix and initial probabilities."""
     with tracing.span("decode") as sp:
+        hmm = _prepare(transition_matrix, prob_init, hmm)
         if mesh is not None:
-            return decode_over_data(
-                mesh, log_obs, lengths, lambda x, lens: viterbi_decode_batch_logobs(
-                    transition_matrix=transition_matrix, prob_init=prob_init, log_obs=x,
-                    lengths=lens))
-        S = np.asarray(transition_matrix).shape[0]
-        N, T, S_obs = log_obs.shape
-        if S_obs != S:
-            raise ValueError(f"log_obs has {S_obs} states, the matrix {S}")
-        with tracing.span("decode.prepare"):
-            log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
-            bstruct = extract_banded_structure(np.asarray(transition_matrix))
-            tracing.count("tables_built")
-        with tracing.span("decode.forward"):
-            lengths = cuda_lib.host_lengths(lengths, N, T)
-            if bstruct is not None:
-                t1_last, t1m1 = banded_forward(bstruct, log_pi, log_obs, lengths)
-            else:
-                log_B = tracing.upload(log_B, log_obs.device, "decode")  # one upload for K3 and K4
-                t1_last, t1m1 = dense_forward(log_B, log_pi, log_obs, lengths)
-        return _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths, sp)
+            return decode_over_data(mesh, log_obs, lengths, _in_decode_span(_decode_logobs, hmm))
+        return _decode_logobs(hmm, log_obs, lengths, sp)
 
 
 def viterbi_decode_batch(
-    *, transition_matrix, prob_init, probs_st_list, device=None, mesh=None
+    *, transition_matrix, prob_init, probs_st_list, device=None, mesh=None, hmm=None
 ) -> list[np.ndarray]:
     """Decode a list of [S, T_i] observation-probability tracks together
     (numpy arrays or tensors). Returns [T_i] int64 state paths, bit-identical
     to the NumPy oracle given the same log observations. With `mesh`, each
-    "data" device decodes its share of the tracks."""
+    "data" device decodes its share of the tracks. hmm: as
+    viterbi_decode_batch_logobs's."""
     with tracing.span("decode") as sp:
         dev = resolve_device(device)
         S = np.asarray(transition_matrix).shape[0]
@@ -533,44 +582,27 @@ def viterbi_decode_batch(
             sp.set(tracks=len(lengths), frames=sum(lengths), states=S)
         states = viterbi_decode_batch_logobs(
             transition_matrix=transition_matrix, prob_init=prob_init,
-            log_obs=log_obs_fn(obs), lengths=lengths, mesh=mesh,
+            log_obs=log_obs_fn(obs), lengths=lengths, mesh=mesh, hmm=hmm,
         )
         states = tracing.to_host(states, "decode").numpy()
         return [states[i, :L].astype(np.int64) for i, L in enumerate(lengths)]
 
 
 def viterbi_decode_batch_fused_obs(
-    *, transition_matrix, prob_init, logits: torch.Tensor, lengths, obs: dict, mesh=None
+    *, transition_matrix, prob_init, logits: torch.Tensor, lengths, obs: dict, mesh=None,
+    hmm=None
 ) -> torch.Tensor:
     """Decode a [N, T, n_bins] batch of RAW logits with per-track lengths
     (counterpart of viterbi_decode_batch_pallas_fused_obs; with `mesh`, each
     "data" device runs this on its share of the tracks).
     obs: the JAX package's obs dict (hmm/obs_fused.py::obs_params). With a
     banded structure: K9, the first-max argmax, then K2 (K4 when the
-    structure has no classes); without: K5/K6, then
-    viterbi_decode_batch_logobs (K3/K4). Returns states [N, T] int32 on
-    the logits' device; entries at or beyond each track's length are
-    unspecified."""
+    structure has no classes); without: K5/K6, then K3/K4. Returns states
+    [N, T] int32 on the logits' device; entries at or beyond each track's
+    length are unspecified. hmm: as viterbi_decode_batch_logobs's."""
     with tracing.span("decode") as sp:
+        hmm = _prepare(transition_matrix, prob_init, hmm)
         if mesh is not None:
-            return decode_over_data(
-                mesh, logits, lengths, lambda x, lens: viterbi_decode_batch_fused_obs(
-                    transition_matrix=transition_matrix, prob_init=prob_init, logits=x,
-                    lengths=lens, obs=obs))
-        S = np.asarray(transition_matrix).shape[0]
-        if logits.shape[-1] + 1 != S:
-            raise ValueError(f"logits have {logits.shape[-1]} bins, the matrix {S} states")
-        with tracing.span("decode.prepare"):
-            bstruct = extract_banded_structure(np.asarray(transition_matrix))
-            if bstruct is not None:
-                log_B, log_pi = prepare_log_params(transition_matrix, prob_init)
-            tracing.count("tables_built")
-        if bstruct is None:
-            return viterbi_decode_batch_logobs(
-                transition_matrix=transition_matrix, prob_init=prob_init,
-                log_obs=obs_fused.log_obs(logits, obs), lengths=lengths,
-            )
-        with tracing.span("decode.forward"):
-            lengths = cuda_lib.host_lengths(lengths, *logits.shape[:2])
-            t1_last, t1m1 = banded_forward_obs(bstruct, log_pi, logits, lengths, obs)
-        return _route_and_backtrace(bstruct, log_B, t1_last, t1m1, lengths, sp)
+            return decode_over_data(mesh, logits, lengths,
+                                    _in_decode_span(_decode_fused, hmm, obs=obs))
+        return _decode_fused(hmm, logits, lengths, sp, obs)

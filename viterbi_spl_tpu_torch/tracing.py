@@ -38,8 +38,9 @@ its events with, so spans lie on a device trace's timeline as they are.
 
 Counters: `host_waits`, the blocking copies between the host
 and a card, each in a `<layer>.wait` span (`wait`, `to_host`, `upload`);
-`h2d_bytes` and `d2h_bytes`, the bytes they copy; `tables_built`, the
-decode's host-built tables (`decode.prepare`). A copy that is not
+`h2d_bytes` and `d2h_bytes`, the bytes they copy; `tables_built` and
+`tables_reused`, the decode's prepared HMM built or found
+(`decode.prepare`, hmm/prepared.py). A copy that is not
 non_blocking ends in a synchronise of the stream in PyTorch, from the host
 to the card as from the card to the host, so the host waits there for
 every kernel queued before it: a read of the card (`.cpu()`, `float(t)`)
