@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from scipy.signal.windows import blackmanharris, hann
 
+from .. import tracing
 from ..utils import resolve_device
 
 
@@ -46,21 +47,32 @@ def jdc_spectrogram(samples: np.ndarray, sr: int = 8000, device=None) -> np.ndar
     where a float32 FFT's rounding is a large relative error; on a plain
     tone the JAX package's output is 0.024 of its range off a float64
     reference, this one 3e-8 (scripts/precision_probe.py).
+
+    Spans (tracing.py): `front_end.setup` (the window), `front_end.stft`
+    (the card's STFT), `front_end.db` (the host's dB scaling); the
+    window's and the samples' uploads and the magnitude's copy back are
+    `front_end.wait` spans.
     """
     dev = resolve_device(device)
     n_fft, hop = 1024, 80
-    window = torch.from_numpy(hann(n_fft, sym=False).astype(np.float32)).to(dev, torch.float64)
+    f64 = torch.float64
+    with tracing.span("front_end.setup"):
+        window = torch.from_numpy(hann(n_fft, sym=False).astype(np.float32))
+        window = tracing.upload(window, dev, "front_end", f64)
     y = np.pad(np.asarray(samples, np.float32), n_fft // 2, mode="reflect")
-    y = torch.from_numpy(y).to(dev, torch.float64)
-    spec = stft_frames(y, window, n_fft, hop).abs().cpu().numpy()
+    y = tracing.upload(torch.from_numpy(y), dev, "front_end", f64)
+    with tracing.span("front_end.stft"):
+        spec = stft_frames(y, window, n_fft, hop).abs()
+    spec = tracing.to_host(spec, "front_end").numpy()
 
     # librosa.power_to_db(ref=np.max, amin=1e-10, top_db=80)
-    amin = 1e-10
-    ref = max(float(spec.max()), amin)
-    db = 10.0 * np.log10(np.maximum(spec, amin)) - 10.0 * np.log10(ref)
-    db = np.maximum(db, db.max() - 80.0)
-    out = db / 80.0 + 1.0
-    return np.require(out.astype(np.float32), requirements=["C"])
+    with tracing.span("front_end.db"):
+        amin = 1e-10
+        ref = max(float(spec.max()), amin)
+        db = 10.0 * np.log10(np.maximum(spec, amin)) - 10.0 * np.log10(ref)
+        db = np.maximum(db, db.max() - 80.0)
+        out = db / 80.0 + 1.0
+        return np.require(out.astype(np.float32), requirements=["C"])
 
 
 class SinebellSTFT:

@@ -25,6 +25,10 @@ gradient (frozen at zero), so that the one bias trains as flax's does; the
 initializers are flax's (input kernels lecun_normal, hidden kernels
 orthogonal, biases zero). `model.train()` is the JAX module's train=True;
 the dropouts draw from the `dropout` generator, and are off without one.
+
+Spans (tracing.py): `model.convs`, from the first conv to the pooled
+block 4, and `model.recurrent` around each BiLSTM (attr `head`: `pitch`
+or `voicing`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from .. import tracing
 from .layers import F32, BatchNorm, Conv, Dense, Dropout, at_least_f32, variance_scaling_
 
 
@@ -130,15 +135,18 @@ class JDC(nn.Module):
             raise ValueError(f"expected [B, T, 513], got {tuple(x.shape)}")
         dt = self.dtype
         h = x[:, None]  # [B, 1, T, F]
-        b1 = self.conv1_1(h, dt)
-        b1 = at_least_f32(self.conv1_2(_lrelu(self.bn1(b1, batch_stats)), dt))
-        b2 = self.block2(b1, batch_stats)
-        b3 = self.block3(b2, batch_stats)
-        b4 = self.block4(b3, batch_stats)  # [B, 256, T, 8]
-        b4p = _pool14(_lrelu(self.bn4(b4, batch_stats)))  # [B, 256, T, 2]
+        with tracing.span("model.convs"):
+            b1 = self.conv1_1(h, dt)
+            b1 = at_least_f32(self.conv1_2(_lrelu(self.bn1(b1, batch_stats)), dt))
+            b2 = self.block2(b1, batch_stats)
+            b3 = self.block3(b2, batch_stats)
+            b4 = self.block4(b3, batch_stats)  # [B, 256, T, 8]
+            b4p = _pool14(_lrelu(self.bn4(b4, batch_stats)))  # [B, 256, T, 2]
         b4p = self.drop(b4p, dropout)
 
-        pitch = self.pitch_lstm(_to_btf(b4p))
+        pitch = _to_btf(b4p)
+        with tracing.span("model.recurrent", head="pitch"):
+            pitch = self.pitch_lstm(pitch)
         pitch = at_least_f32(self.pitch_dense(pitch, dt))
 
         v1 = F.max_pool2d(b1, (1, 4 ** 4), (1, 4 ** 4))
@@ -146,7 +154,9 @@ class JDC(nn.Module):
         v3 = F.max_pool2d(b3, (1, 4 ** 2), (1, 4 ** 2))
         voicing = torch.cat([v1, v2, v3, b4p], dim=1)
         voicing = _lrelu(self.v_bn(self.v_conv(voicing, dt), batch_stats))
-        voicing = self.v_lstm(_to_btf(self.drop(voicing, dropout)))
+        voicing = _to_btf(self.drop(voicing, dropout))
+        with tracing.span("model.recurrent", head="voicing"):
+            voicing = self.v_lstm(voicing)
         voicing = torch.softmax(at_least_f32(self.v_dense(voicing, dt)), dim=-1)
 
         # combine with pitch-derived voicing (jdc/acoustic_module.py:74-81)
