@@ -29,9 +29,24 @@ the dropouts draw from the `dropout` generator, and are off without one.
 Spans (tracing.py): `model.convs`, from the first conv to the pooled
 block 4, and `model.recurrent` around each BiLSTM (attr `head`: `pitch`
 or `voicing`).
+
+Convolution algorithm: in eval mode the conv stack runs with cuDNN's
+benchmark flag on (TF32 and determinism as the caller set them), so that
+each input shape gets the algorithm cuDNN measures fastest on the card,
+not its heuristic choice (FFT algorithms for some of the 3x3 convs on the
+128- and 32-bin planes held the stack at 2.5-5.9 TFLOP/s on an H100, the
+measured choice, implicit GEMM throughout, at 19-26). cuDNN keeps its
+choice for the process; the first run of a shape, when it measures,
+counts one `conv_tunes`. So that few shapes are measured, the stack runs
+the batch rounded up to a multiple of BATCH_STEP chunks with zero chunks
+(each chunk is computed alone under running-average BatchNorm), dropped
+as the stack ends. Training, and batch statistics, keep the batch as it
+is; training keeps the caller's flags too.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -48,6 +63,34 @@ def _lrelu(x):
 
 def _pool14(x):
     return F.max_pool2d(x, (1, 4), (1, 4))
+
+
+# (device, dtype, shape) of the inputs the eval-mode conv stack has run in
+# this process: cuDNN's cache of measured algorithms is the process's too
+_MEASURED: set = set()
+# the eval-mode stack's batch is rounded up to a multiple of this many
+# chunks: measuring a new batch size costs ~0.42 s on an H100, and a clip's
+# batch is anything from 1 to 64 chunks
+BATCH_STEP = 8
+
+
+def _round_up_batch(h):
+    """h [B, ...] with zero chunks appended up to a multiple of BATCH_STEP."""
+    pad = -len(h) % BATCH_STEP
+    return torch.cat([h, h.new_zeros(pad, *h.shape[1:])]) if pad else h
+
+
+def _measured_convs(x, dtype):
+    """The flags under which the eval-mode conv stack runs on input x: cuDNN
+    benchmark on, the caller's TF32 and determinism kept; a shape met first
+    counts one conv_tunes (on a card, cuDNN measures its algorithms then)."""
+    key = (x.device, dtype, tuple(x.shape))
+    if key not in _MEASURED:
+        _MEASURED.add(key)
+        tracing.count("conv_tunes")
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=True, deterministic=cudnn.deterministic,
+                       allow_tf32=cudnn.allow_tf32)
 
 
 def _to_btf(x):
@@ -135,13 +178,20 @@ class JDC(nn.Module):
             raise ValueError(f"expected [B, T, 513], got {tuple(x.shape)}")
         dt = self.dtype
         h = x[:, None]  # [B, 1, T, F]
+        n, flags = len(h), contextlib.nullcontext()
         with tracing.span("model.convs"):
-            b1 = self.conv1_1(h, dt)
-            b1 = at_least_f32(self.conv1_2(_lrelu(self.bn1(b1, batch_stats)), dt))
-            b2 = self.block2(b1, batch_stats)
-            b3 = self.block3(b2, batch_stats)
-            b4 = self.block4(b3, batch_stats)  # [B, 256, T, 8]
-            b4p = _pool14(_lrelu(self.bn4(b4, batch_stats)))  # [B, 256, T, 2]
+            if not self.training:
+                if not batch_stats:  # chunks independent: zero chunks change none
+                    h = _round_up_batch(h)
+                flags = _measured_convs(h, dt)
+            with flags:
+                b1 = self.conv1_1(h, dt)
+                b1 = at_least_f32(self.conv1_2(_lrelu(self.bn1(b1, batch_stats)), dt))
+                b2 = self.block2(b1, batch_stats)
+                b3 = self.block3(b2, batch_stats)
+                b4 = self.block4(b3, batch_stats)  # [B, 256, T, 8]
+                b4p = _pool14(_lrelu(self.bn4(b4, batch_stats)))  # [B, 256, T, 2]
+            b1, b2, b3, b4p = b1[:n], b2[:n], b3[:n], b4p[:n]
         b4p = self.drop(b4p, dropout)
 
         pitch = _to_btf(b4p)

@@ -40,7 +40,10 @@ Counters: `host_waits`, the blocking copies between the host
 and a card, each in a `<layer>.wait` span (`wait`, `to_host`, `upload`);
 `h2d_bytes` and `d2h_bytes`, the bytes they copy; `tables_built` and
 `tables_reused`, the decode's prepared HMM built or found
-(`decode.prepare`, hmm/prepared.py). A copy that is not
+(`decode.prepare`, hmm/prepared.py); `conv_tunes`, an input shape JDC's
+eval-mode conv stack meets first in the process, when cuDNN measures its
+algorithms for it (`model.convs`, models/jdc.py). `COUNTERS` names them
+all. A copy that is not
 non_blocking ends in a synchronise of the stream in PyTorch, from the host
 to the card as from the card to the host, so the host waits there for
 every kernel queued before it: a read of the card (`.cpu()`, `float(t)`)
@@ -64,6 +67,8 @@ import torch
 import torch.autograd.profiler as _profiler
 
 CAPACITY = 1 << 18
+COUNTERS = ("host_waits", "h2d_bytes", "d2h_bytes", "tables_built", "tables_reused",
+            "conv_tunes")
 
 _force: bool | None = None  # None: record while a torch profiler runs
 _tls = threading.local()
