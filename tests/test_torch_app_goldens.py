@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from test_app_goldens import FAMILIES, GOLDEN, METHODS, PINNED, _family_tracks
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch.harness.evaluate import DecoderSetup, evaluate_posteriorgrams
 
 _TRACKS: dict = {}

@@ -12,6 +12,7 @@ from test_torch_apps import (
     check_validate,
     family_run,
 )
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 FAMILIES = ("ftanet", "tonet")
 

@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.hmm import params as JP
 from viterbi_spl_tpu.hmm import viterbi_banded as JB
 from viterbi_spl_tpu.hmm.viterbi import NEG_PAD
@@ -190,18 +191,9 @@ def _chase(bp, last, lengths):
     return states
 
 
-@pytest.fixture
-def one_cpu_thread():
-    """Bit-for-bit comparisons: PyTorch on one thread (ROADMAP section 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("n_bins,d_max,P", [(360, 14, 384), (721, 40, 768)])
 def test_backpointer_pass_then_chase_on_ties_matches_plain_and_pallas(
-        rng, one_cpu_thread, n_bins, d_max, P):
+        rng, n_bins, d_max, P):
     """K2's design in its plain version: every backpointer
     (banded_backpointers_plain), then a chase over them, gives
     banded_backtrace_plain's states, the tie fixture's path and
@@ -265,7 +257,7 @@ def test_k1_cluster_fits_the_kernel_limits(S, d_max, C, fits):
 
 
 @pytest.mark.parametrize("cluster", [None, 0, 2])
-def test_banded_forward_cluster_on_the_cpu(rng, one_cpu_thread, cluster):
+def test_banded_forward_cluster_on_the_cpu(rng, cluster):
     """banded_forward's `cluster` changes only the card's layout: a CPU
     tensor takes the plain version by any."""
     A, pi, _ = _shaped(TP, _tracks(rng, 60), 60, 6)

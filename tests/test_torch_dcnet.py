@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_models import EVAL_RTOL, flax_variables, jax_forward, port_model
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.apps import dcnet as j_dcnet_app
 from viterbi_spl_tpu.models.dcnet import DCNet as JDCNet
 from viterbi_spl_tpu_torch.apps import dcnet as t_dcnet_app

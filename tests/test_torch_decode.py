@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from conftest import random_hmm
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.cli import decode as JD
 from viterbi_spl_tpu.cli.hmm_artifacts import build_hmm_artifacts as jax_build
 from viterbi_spl_tpu.families import family_spec as jax_family_spec

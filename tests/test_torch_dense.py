@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from conftest import random_hmm
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.hmm.viterbi import NEG_PAD
 from viterbi_spl_tpu.hmm.viterbi import prepare_log_params as jax_prepare
 from viterbi_spl_tpu.hmm.viterbi_pallas import (
@@ -97,17 +98,8 @@ def test_decode_api_dispatch_matches_oracle(rng, banded):
         )
 
 
-@pytest.fixture
-def one_cpu_thread():
-    """Bit-for-bit comparisons: PyTorch on one thread (ROADMAP section 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("S", [90, 361])
-def test_dense_forward_plain_is_the_window_forward_from_reset_row_0(rng, one_cpu_thread, S):
+def test_dense_forward_plain_is_the_window_forward_from_reset_row_0(rng, S):
     """K3's contract on the card rests on this: the dense batched forward
     is K7's forward with every reset row 0, bit for bit, on ragged lengths
     (1 and 2 among them) and a tie-heavy track; and dense_forward on a CPU
@@ -222,7 +214,7 @@ def _segmented_chase(bp, t1m1, last, lengths, L, W):
 
 @pytest.mark.parametrize("S,P,L,W", [(33, 128, 5, 0), (33, 128, 7, 3), (90, 128, 16, 0),
                                      (90, 128, 16, 32), (361, 384, 12, 4)])
-def test_k4_pass_then_chase_and_segments_match_pallas_batch(rng, one_cpu_thread, S, P, L, W):
+def test_k4_pass_then_chase_and_segments_match_pallas_batch(rng, S, P, L, W):
     """K4 on the card, modelled on the CPU, against the JAX package's
     viterbi_backtrace_pallas_batch (interpreted), on ragged lengths (1 and 2
     among them) and a t1m1 with first-max ties at every step: every

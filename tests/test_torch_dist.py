@@ -20,6 +20,7 @@ import torch
 from conftest import random_hmm
 from test_dist import realistic_hmm
 from test_torch_decode import _cli_inputs, _jax_setup, _logits
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.cli import decode as JD
 from viterbi_spl_tpu.dist import decode_tracks_sharded as jax_decode_tracks_sharded
 from viterbi_spl_tpu.dist import make_mesh as jax_make_mesh
@@ -52,16 +53,6 @@ from viterbi_spl_tpu_torch.hmm.viterbi import prepare_log_params
 LANE = 128
 TINY = np.finfo(np.float32).tiny
 CPU8 = ["cpu"] * 8
-
-
-@pytest.fixture(autouse=True)
-def _one_cpu_thread():
-    """The comparisons are bit for bit; PyTorch on one thread, as
-    test_torch_obs_fused.py runs it (ROADMAP section 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _log(obs_ts):

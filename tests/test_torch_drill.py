@@ -24,23 +24,12 @@ tests/test_torch_drill_44k.py (dcnet, and imm's eval with --external-eval
 
 import numpy as np
 import pytest
-import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch.data import generate_fake_corpus
 
 EVAL_SETS = ("validation", "test", "adc04", "mirex05", "mir1k", "rwc")
 STRICT_TOL, LOOSE_TOL = 1e-6, 0.05
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """PyTorch on one thread: under pytest-xdist each worker's PyTorch would
-    spread its ops over every core, and with six workers their threads'
-    waits multiplied these tests' time five- to tenfold (measured)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

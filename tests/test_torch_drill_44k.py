@@ -7,7 +7,8 @@ of their own so that the test workers share the drills."""
 import numpy as np
 import pytest
 
-from test_torch_drill import drill, fake_corpus, one_thread  # noqa: F401 (fixtures)
+from test_torch_drill import drill, fake_corpus  # noqa: F401 (fixtures)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 
 def test_dcnet_real_data_chain(fake_corpus, tmp_path, monkeypatch):  # noqa: F811

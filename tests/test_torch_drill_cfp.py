@@ -3,7 +3,8 @@ the chain and the checks) for ftanet at its app width (wav -> CFP ->
 FTANet), in a file of its own so that the test workers share the
 drills."""
 
-from test_torch_drill import drill, fake_corpus, one_thread  # noqa: F401 (fixtures)
+from test_torch_drill import drill, fake_corpus  # noqa: F401 (fixtures)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 
 def test_ftanet_real_data_chain(fake_corpus, tmp_path, monkeypatch):  # noqa: F811

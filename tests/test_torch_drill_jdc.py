@@ -2,7 +2,8 @@
 the chain and the checks) for jdc at its app width (wav -> STFT -> JDC),
 in a file of its own so that the test workers share the drills."""
 
-from test_torch_drill import drill, fake_corpus, one_thread  # noqa: F401 (fixtures)
+from test_torch_drill import drill, fake_corpus  # noqa: F401 (fixtures)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 
 def test_jdc_real_data_chain(fake_corpus, tmp_path, monkeypatch):  # noqa: F811

@@ -5,7 +5,8 @@ test workers share the drills."""
 
 import dataclasses
 
-from test_torch_drill import drill, fake_corpus, one_thread  # noqa: F401 (fixtures)
+from test_torch_drill import drill, fake_corpus  # noqa: F401 (fixtures)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 
 
 def test_tonet_real_data_chain(fake_corpus, tmp_path, monkeypatch):  # noqa: F811

@@ -35,7 +35,7 @@ import importlib
 import numpy as np
 import pytest
 
-from test_torch_drill import one_thread  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.apps import common as JC
 from viterbi_spl_tpu_torch.apps import common as TC
 from viterbi_spl_tpu_torch.data import generate_fake_corpus

@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from test_torch_drill import one_thread  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.apps import tonet as JT
 from viterbi_spl_tpu.data.fake_corpus import generate_fake_corpus as j_generate
 from viterbi_spl_tpu.io import wav as JW

@@ -37,6 +37,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu import frontend as JF
 from viterbi_spl_tpu.frontend import stft as JS
 from viterbi_spl_tpu.io import wav as JW

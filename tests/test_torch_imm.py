@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.models import imm as JM
 from viterbi_spl_tpu_torch.models import imm as TM
 
@@ -46,7 +47,6 @@ STEREO_AUX = ("SVL", "SVR", "SML", "SMR", "hatSXL", "hatSXR")
 
 @pytest.fixture(scope="module")
 def pair():
-    torch.set_num_threads(1)  # ROADMAP §3: one thread for float comparisons
     return JM.IMM(JM.IMMConfig(**SMALL)), TM.IMM(TM.IMMConfig(**SMALL), device="cpu")
 
 

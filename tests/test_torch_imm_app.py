@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_torch_imm import jax_fit, jax_mono_init, patch_fits_to_jax_draws
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.apps import imm as JA
 from viterbi_spl_tpu.data import splits as JS
 from viterbi_spl_tpu.data import vocals as JV
@@ -38,7 +39,6 @@ from viterbi_spl_tpu_torch.models import imm as TM
 
 @pytest.fixture(scope="module")
 def pair():
-    torch.set_num_threads(1)  # ROADMAP §3: one thread for float comparisons
     j = JM.IMM(JA.debug_imm_config())
     return j, TM.IMM(TM.IMMConfig(**dataclasses.asdict(j.config)), device="cpu")
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch import tracing
 from viterbi_spl_tpu_torch.apps.common import float32_math
 from viterbi_spl_tpu_torch.models import jdc as jdc_module

@@ -32,6 +32,7 @@ from perfbench import hmm_params
 from perfbench import traffic as T
 from perfbench.reference import jdc as R
 from perfbench.reference import stft as RS
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch import tracing
 from viterbi_spl_tpu_torch.frontend import jdc_spectrogram
 from viterbi_spl_tpu_torch.models.jdc import JDC

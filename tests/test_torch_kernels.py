@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch import tracing
 from viterbi_spl_tpu_torch.hmm import fixtures as FX
 from viterbi_spl_tpu_torch.hmm import obs_fused as OF

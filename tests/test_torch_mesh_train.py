@@ -27,7 +27,7 @@ templates are tests/test_apps.py:172-250 and tests/test_dist.py:214-250.
 - A --mesh data=2,model=2 checkpoint holds the single-device layout and
   restores into a single-device infer; --resume with --mesh re-splits it.
 
-PyTorch runs on one thread (ROADMAP's xdist rule).
+PyTorch runs on one thread (tests/torch_threads.py).
 """
 
 import copy
@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from test_torch_models import flax_variables
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.apps import common as JC
 from viterbi_spl_tpu.apps import msnet as j_msnet
 from viterbi_spl_tpu.dist import tp_spec as j_tp_spec
@@ -58,14 +59,6 @@ from viterbi_spl_tpu_torch.harness.train import restore_checkpoint
 from viterbi_spl_tpu_torch.models import DCNet, FTANet, JDC, MSNet, TONet
 from viterbi_spl_tpu_torch.models.convert import convert
 from viterbi_spl_tpu_torch.models.layers import BatchNorm, Dropout
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _cfg():
@@ -87,7 +80,6 @@ def _train(tmp_path, tag, extra=(), epochs=2):
 
 @pytest.fixture(scope="module")
 def single_losses(tmp_path_factory):
-    torch.set_num_threads(1)
     return _train(tmp_path_factory.mktemp("single"), "single")[1]
 
 

@@ -43,6 +43,7 @@ import pytest
 import torch
 from flax import linen as nn
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.models import adapters as JA
 from viterbi_spl_tpu.models import targets as JTG
 from viterbi_spl_tpu.models.ftanet import FTANet as JFTANet

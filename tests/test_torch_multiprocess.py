@@ -28,6 +28,7 @@ thread.
 
 import pytest
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch.dist.workers import CHECKS, spawn
 
 

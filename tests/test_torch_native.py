@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from conftest import random_hmm
-from test_torch_drill import one_thread  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.data.registry import TrackDataset as JTrackDataset
 from viterbi_spl_tpu_torch import native as TN
 from viterbi_spl_tpu_torch.apps import common as TC

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.frontend import nsgt as JN
 from viterbi_spl_tpu_torch.frontend import nsgt as TN
 

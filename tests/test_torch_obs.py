@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.hmm import obs as JO
 from viterbi_spl_tpu_torch.hmm import obs as TO
 from viterbi_spl_tpu_torch.hmm.oracle import viterbi_oracle

@@ -38,6 +38,7 @@ import torch
 
 from conftest import random_hmm
 from test_torch_decode import _cli_inputs, _jax_setup, _logits
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.cli import decode as JD
 from viterbi_spl_tpu.hmm import params as JP
 from viterbi_spl_tpu.hmm.obs import shaun_observation_probs as jax_shaun_probs
@@ -63,19 +64,6 @@ METHODS = ("shaun", "softmax-scaled", "softmax-unscaled")
 LOG_TINY = np.float32(np.log(np.float32(TINY)))
 N, T = 8, 32
 RAGGED = np.asarray([T, T - 5, T - 1, 7, T, 3, T - 2, T], np.int32)
-
-
-@pytest.fixture(autouse=True)
-def _one_cpu_thread():
-    """PyTorch's CPU exp/log split a batch this size across threads, and now
-    and then one thread's share (a whole track) came out an ulp apart
-    between two calls on the same input, in about one run of this file in
-    ten under pytest-xdist; on one thread the bit-exact comparisons here
-    repeat."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _lane_pad(n_bins, spw):

@@ -33,22 +33,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch.cli import repro_drill
 
 REPO = Path(__file__).resolve().parent.parent
 R05 = json.loads((REPO / "REPRO_r05.json").read_text())
 # the port's additions to the artifact's config
 PORT_CONFIG_KEYS = {"device", "nvidia_smi", "gpu_name", "power_limit"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """PyTorch on one thread (tests/test_torch_drill.py::one_thread): under
-    pytest-xdist the workers' threads would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from conftest import random_hmm
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.hmm.oracle import viterbi_oracle, viterbi_oracle_forward
 from viterbi_spl_tpu.hmm.viterbi_scan import viterbi_t1_scan as jax_t1_scan
 from viterbi_spl_tpu_torch.hmm.viterbi import prepare_log_params

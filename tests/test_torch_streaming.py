@@ -7,9 +7,9 @@ takes maxima, and the JAX side is fed the same NumPy log observations.
 
 import numpy as np
 import pytest
-import torch
 
 from conftest import random_hmm
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.hmm import params as JP
 from viterbi_spl_tpu.hmm.oracle import viterbi_oracle
 from viterbi_spl_tpu.hmm.streaming import StreamingViterbiBatch as JaxBatch
@@ -21,15 +21,6 @@ from viterbi_spl_tpu_torch.hmm.streaming import (
 )
 
 TINY = np.finfo(np.float32).tiny
-
-
-@pytest.fixture(autouse=True)
-def _one_cpu_thread():
-    """Bit-for-bit comparisons: PyTorch on one thread (ROADMAP section 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _stream(sv, obs_ts, hop):

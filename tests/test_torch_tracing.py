@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu_torch import tracing
 from viterbi_spl_tpu_torch.harness.evaluate import DecoderSetup
 from viterbi_spl_tpu_torch.hmm import viterbi_dense

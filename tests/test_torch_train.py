@@ -37,6 +37,7 @@ import torch
 from flax import linen as nn
 
 from test_torch_models import flax_variables
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.apps import common as JC
 from viterbi_spl_tpu.apps import msnet as j_msnet
 from viterbi_spl_tpu.apps.tonet import tonet_lr_schedule as j_schedule

@@ -81,6 +81,7 @@ from viterbi_spl_tpu.harness.train import TrainState as JTrainState
 from viterbi_spl_tpu.io.wav import load_wav as j_load_wav
 from viterbi_spl_tpu.models.tonet import TONet as JTONet
 from test_torch_imm import LOGIT_ATOL, patch_fits_to_jax_draws
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.models import imm as JM
 from viterbi_spl_tpu_torch.apps import imm as TA
 from viterbi_spl_tpu_torch.apps import tonet as t_tonet_app

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.utils import Timer as JTimer
 from viterbi_spl_tpu.utils import shape_bucket as j_shape_bucket
 from viterbi_spl_tpu_torch.utils import (

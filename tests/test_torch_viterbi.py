@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from conftest import random_hmm
+from torch_threads import one_thread  # noqa: F401 (fixture)
 from viterbi_spl_tpu.hmm import oracle as JO
 from viterbi_spl_tpu.hmm.viterbi import prepare_log_params as jax_prepare
 from viterbi_spl_tpu.hmm.viterbi import viterbi_decode_jax
